@@ -1,0 +1,92 @@
+// Shared helpers for the paged Softermax attention kernels.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// Finite mask value (repro_torch.core.numerics.NEG_INF): -inf would turn
+// the online recurrence's (m_prev - m_new) into nan on fully masked rows.
+#define SMX_NEG_INF (-1e9f)
+
+// dtype codes shared with the Python wrappers
+enum SmxDtype { SMX_F32 = 0, SMX_BF16 = 1, SMX_I8 = 2 };
+
+__device__ __forceinline__ float smx_to_f32(float x) { return x; }
+__device__ __forceinline__ float smx_to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float smx_to_f32(int8_t x) {
+  return static_cast<float>(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T smx_from_f32(float x);
+template <>
+__device__ __forceinline__ float smx_from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 smx_from_f32<__nv_bfloat16>(
+    float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// The online rescale 2^(m_prev - m_new). Under IntMax both maxima are
+// integral, so the factor is an exact power of two: build it with ldexpf
+// (an exponent add) instead of trusting an exp2 approximation. The base-2
+// ablation (intmax == 0) has non-integral differences and uses exp2f.
+__device__ __forceinline__ float smx_rescale(float diff, int intmax) {
+  if (intmax) {
+    // diff <= 0; below -126 - 23 the factor underflows to 0 anyway
+    return diff < -200.f ? 0.f : ldexpf(1.f, static_cast<int>(diff));
+  }
+  return exp2f(diff);
+}
+
+// Stage `rows` gathered KV rows, logical positions pos0 .. pos0+rows-1,
+// into shared memory as fp32: position p is pool row
+// (tbl[p / BS] * Hkv + h) * BS + p % BS and lands at k_s[r * ldk + d] /
+// v_s[r * ldv + d]. Rows are read with 16-byte vector loads where their
+// width and the pools' alignment allow it, all issued before any is used,
+// so a tile costs about one device-memory round trip.
+template <typename KT>
+__device__ __forceinline__ void smx_stage_kv(
+    const KT* __restrict__ k_pool, const KT* __restrict__ v_pool,
+    const int* tbl, int pos0, int rows, int Hkv, int h, int BS, int D,
+    float* k_s, int ldk, float* v_s, int ldv) {
+  constexpr int VEC = 16 / sizeof(KT);
+  const bool vec =
+      D % VEC == 0 && (reinterpret_cast<uintptr_t>(k_pool) |
+                       reinterpret_cast<uintptr_t>(v_pool)) % 16 == 0;
+  const int per_row = vec ? D / VEC : D;
+  for (int i = threadIdx.x; i < rows * per_row; i += blockDim.x) {
+    const int r = i / per_row, p = pos0 + r;
+    const size_t base =
+        ((static_cast<size_t>(tbl[p / BS]) * Hkv + h) * BS + p % BS) * D;
+    if (vec) {
+      const int c = (i % per_row) * VEC;
+      const uint4 kr = *reinterpret_cast<const uint4*>(k_pool + base + c);
+      const uint4 vr = *reinterpret_cast<const uint4*>(v_pool + base + c);
+      const KT* ke = reinterpret_cast<const KT*>(&kr);
+      const KT* ve = reinterpret_cast<const KT*>(&vr);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        k_s[r * ldk + c + j] = smx_to_f32(ke[j]);
+        v_s[r * ldv + c + j] = smx_to_f32(ve[j]);
+      }
+    } else {
+      const int d = i % per_row;
+      k_s[r * ldk + d] = smx_to_f32(k_pool[base + d]);
+      v_s[r * ldv + d] = smx_to_f32(v_pool[base + d]);
+    }
+  }
+}
+
+// Set the dynamic shared-memory limit of a kernel once it needs more than
+// the 48 KB default.
+template <typename K>
+static cudaError_t smx_smem_limit(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}

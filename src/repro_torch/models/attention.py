@@ -1,0 +1,190 @@
+"""Attention with Softermax (the serving subset of the JAX package's
+``repro.models.attention``).
+
+* ``chunked_attention`` — the online Softermax state (running IntMax,
+  running denominator, accumulator) carried over KV chunks in plain torch:
+  the one-shot prefill path.
+* ``quantize_kv`` / ``dequantize_kv`` — the int8 KV row format.
+
+Every float softmax variant runs through ``exp2``: the e-base ablation
+folds log2(e) into the q scale (``_mode``). The ``flash`` impl is the dense
+flash-attention kernel, which the port has not written yet, so
+``attention_apply`` refuses it rather than run something else.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.numerics import LOG2_E, NEG_INF
+from repro_torch.models.layers import rmsnorm, rope
+from repro_torch.models.schema import ParamSpec
+
+
+def attention_schema(cfg: ModelConfig):
+    d, dh = cfg.d_model, cfg.head_dim_
+    s = {
+        "wq": ParamSpec((d, cfg.n_heads, dh), ("embed", "heads", "head_dim")),
+        "wk": ParamSpec((d, cfg.n_kv_heads, dh),
+                        ("embed", "kv_heads", "head_dim")),
+        "wv": ParamSpec((d, cfg.n_kv_heads, dh),
+                        ("embed", "kv_heads", "head_dim")),
+        "wo": ParamSpec((cfg.n_heads, dh, d), ("heads", "head_dim", "embed")),
+    }
+    if cfg.qk_norm:
+        s["q_norm"] = {"scale": ParamSpec((dh,), ("head_dim",), init="ones")}
+        s["k_norm"] = {"scale": ParamSpec((dh,), ("head_dim",), init="ones")}
+    return s
+
+
+def _mode(cfg: ModelConfig) -> Tuple[float, bool]:
+    """(premultiplier, intmax) so that exp2 realizes the configured softmax."""
+    impl = cfg.softmax_impl
+    if impl == "softermax":
+        return 1.0, True
+    if impl == "base2":
+        return 1.0, False
+    if impl in ("softmax", "base2_folded"):
+        return LOG2_E, False
+    if impl == "softermax_fixed":
+        return 1.0, True
+    raise ValueError(impl)
+
+
+def q_scale(q: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Pre-scale queries by ``premult / sqrt(dh)``, the scalar rounded to
+    q's dtype first (as the JAX package's ``jnp.asarray(…, q.dtype)``)."""
+    premult, _ = _mode(cfg)
+    return q * round_to(premult * cfg.head_dim_ ** -0.5, q.dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def round_to(x: float, dtype: torch.dtype) -> float:
+    """A Python scalar rounded to ``dtype`` (on the host: a device scalar
+    would cost a stream-synchronizing copy)."""
+    return torch.tensor(x, dtype=dtype).item()
+
+
+def proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum('...d,dhk->...hk')``: x (..., d) @ w (d, H, k)."""
+    d, H, k = w.shape
+    return (x @ w.reshape(d, H * k)).unflatten(-1, (H, k))
+
+
+def _project_qkv(params, x, cfg: ModelConfig, positions):
+    """Q/K/V projections + qk-norm + RoPE. x: (B, S, d) → (B, H, S, Dh)."""
+    dt = cfg.compute_dtype_
+    q = proj_heads(x, params["wq"].to(dt)).transpose(1, 2)
+    k = proj_heads(x, params["wk"].to(dt)).transpose(1, 2)
+    v = proj_heads(x, params["wv"].to(dt)).transpose(1, 2)
+    if cfg.qk_norm:
+        q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
+    if cfg.rope_theta > 0:
+        pos = positions[:, None, :]          # (B, 1, S) broadcast over heads
+        q = rope(q, pos, cfg.rope_theta)
+        k = rope(k, pos, cfg.rope_theta)
+    return q, k, v
+
+
+def _out_proj(params, o, cfg: ModelConfig):
+    """o: (B, H, S, Dh) -> (B, S, d)."""
+    wo = params["wo"].to(cfg.compute_dtype_)
+    H, dh, d = wo.shape
+    return o.transpose(1, 2).flatten(2) @ wo.reshape(H * dh, d)
+
+
+def chunked_attention(
+    q: torch.Tensor,  # (B, Hq, Sq, D) — pre-scaled
+    k: torch.Tensor,  # (B, Hkv, Sk, D)
+    v: torch.Tensor,
+    *,
+    causal: bool,
+    intmax: bool,
+    window: int = 0,
+    chunk: int = 512,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Online Softermax over KV chunks; scores and the A·V accumulate in
+    fp32, ``p`` is cast to V's dtype before A·V (as in the JAX package)."""
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Sk, _ = k.shape
+    Dv = v.shape[-1]
+    group = Hq // Hkv
+    chunk = min(chunk, Sk)
+    pad = (-Sk) % chunk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    n_chunks = (Sk + pad) // chunk
+    qg = q.reshape(B, Hkv, group, Sq, D).float()
+    dev = q.device
+    q_pos = q_offset + torch.arange(Sq, device=dev)
+    m = torch.full((B, Hkv, group, Sq, 1), NEG_INF, dtype=torch.float32,
+                   device=dev)
+    d = torch.zeros_like(m)
+    acc = torch.zeros((B, Hkv, group, Sq, Dv), dtype=torch.float32,
+                      device=dev)
+    for c in range(n_chunks):
+        k_c = k[:, :, None, c * chunk:(c + 1) * chunk].float()
+        v_c = v[:, :, None, c * chunk:(c + 1) * chunk]
+        s = qg @ k_c.transpose(-1, -2)                   # (B,Hkv,G,Sq,chunk)
+        k_pos = c * chunk + torch.arange(chunk, device=dev)
+        valid = (k_pos < Sk)[None, :]
+        if causal:
+            valid = valid & (q_pos[:, None] >= k_pos[None, :])
+        if window > 0:
+            valid = valid & (q_pos[:, None] - k_pos[None, :] < window)
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        sl = torch.ceil(s) if intmax else s
+        m_new = torch.maximum(m, torch.amax(sl, dim=-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        acc = acc * alpha + p.to(v_c.dtype).float() @ v_c.float()
+        d = d * alpha + torch.sum(p, dim=-1, keepdim=True)
+        m = m_new
+    pos = d > 0
+    o = torch.where(pos, acc / torch.where(pos, d, torch.ones_like(d)),
+                    torch.zeros_like(acc))
+    return o.reshape(B, Hq, Sq, Dv).to(q.dtype)
+
+
+def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
+                    positions: torch.Tensor):
+    """Causal self attention for prefill, ``attention_impl="chunked"``.
+    Returns (y, k, v): the output and the K/V rows to cache."""
+    if cfg.attention_impl != "chunked" or cfg.softmax_impl == \
+            "softermax_fixed":
+        raise NotImplementedError(
+            f"attention_impl={cfg.attention_impl!r} / softmax_impl="
+            f"{cfg.softmax_impl!r}: only the chunked float path is ported "
+            "(the flash kernel and the fixed-point path come later)")
+    _, intmax = _mode(cfg)
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    q = q_scale(q, cfg)
+    o = chunked_attention(q, k, v, causal=True, intmax=intmax,
+                          chunk=cfg.attention_chunk)
+    return _out_proj(params, o, cfg), k, v
+
+
+INT8_KV_MAX = 127.0
+
+
+def quantize_kv(t: torch.Tensor):
+    """Symmetric int8 per-row quantization over the last axis.
+    t: (..., D) → (int8 values, f32 scales (...,)). ``torch.round`` rounds
+    half to even, like ``jnp.round``."""
+    tf = t.float()
+    amax = torch.amax(torch.abs(tf), dim=-1)
+    scale = torch.clamp(amax, min=1e-6) / INT8_KV_MAX
+    q = torch.clamp(torch.round(tf / scale[..., None]),
+                    -INT8_KV_MAX, INT8_KV_MAX).to(torch.int8)
+    return q, scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    return (q.float() * scale[..., None].float()).to(dtype)
