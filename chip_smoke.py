@@ -18,6 +18,24 @@ Phases, in order; any failure raises and exits non-zero:
    pool; every request finishes and the pool invariants hold.
 6. Kernel times at the main path's shapes (CUDA events, L2 flushed between
    launches) beside their bound and their plain versions.
+7. Flash-attention kernel parity: K3 (o, m, d) and K4 (dq, dk, dv) against
+   their plain versions, bf16 and fp32, IntMax on and off, causal and not,
+   GQA groups 1 and 3, Sq = Sk and Sq < Sk, lengths off every tile.
+8. Training parity at reduced llama3.2-3b in float32, attention_impl
+   "flash": three steps on the card (kernels) against the same steps on
+   the CPU (plain versions).
+9. Full-width training of llama3.2-3b: 28 layers, bf16 compute, fp32
+   master weights and AdamW state, remat "full", seq 4096, batch 1, random
+   weights; one step with the plain chunked attention, then three steps
+   through K3/K4 from the same weights and batch; step time, tokens/s,
+   peak memory and launches per step.
+10. K3 and K4 times at the full-width shape beside their bound, their
+   plain versions and PyTorch's scaled_dot_product_attention (forward,
+   and its autograd backward), which computes the same function up to
+   rounding and is timed here only as a yardstick.
+
+Phase 4 also runs one engine with ``attention_impl="flash"``, whose one-shot
+prefill goes through K3.
 
 Prints the ``{"kernels": [...]}`` line and then, last, one JSON line with
 ``ok`` and the device. Without a card it exits non-zero and prints no
@@ -26,6 +44,7 @@ result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -152,10 +171,20 @@ def _drive(eng, prompts, max_new):
 
 
 def _reset_counts():
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     from repro_torch.kernels.flash_decode_paged import flash_decode_paged
     from repro_torch.kernels.flash_prefill_paged import flash_prefill_paged
     flash_decode_paged.launches = 0
     flash_prefill_paged.launches = 0
+    flash_attention.launches = 0
+    flash_attention_bwd.launches = 0
+
+
+def _flash_counts():
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    return flash_attention.launches, flash_attention_bwd.launches
 
 
 def _counts():
@@ -203,6 +232,37 @@ def phase_engine_parity(dev):
         print(f"[4] reduced llama3.2-3b f32 chunk={chunk} kv={kv or 'auto'}:"
               f" card == cpu greedy streams, launches decode={k1} "
               f"prefill={k2}")
+
+    # one-shot prefill through the flash-attention kernel (K3)
+    fcfg = cfg.replace(attention_impl="flash")
+    kw = dict(block_size=8, num_blocks=40, max_batch=4, max_len=64)
+    streams = {}
+    for d in ("cpu", dev):
+        eng = ContinuousEngine(fcfg, params, device=d, **kw)
+        _reset_counts()
+        p0 = eng.metrics.prefills
+        res, _, _, n_dec, _ = _drive(eng, prompts, 8)
+        k1, _ = _counts()
+        k3, k4 = _flash_counts()
+        check_invariants(eng.pool, eng.prefix_cache)
+        streams[str(d)] = [r.tokens for r in res]
+        n_pre = eng.metrics.prefills - p0
+        if d != "cpu":
+            check(eng.metrics.prefix_hit_tokens == 0,
+                  "flash engine: unexpected prefix hit")
+            check(k3 == cfg.n_layers * n_pre and k3 > 0 and k4 == 0,
+                  f"flash engine: K3 launches {k3} != {cfg.n_layers} x "
+                  f"{n_pre} one-shot prefills (K4 {k4})")
+            check(k1 == cfg.n_layers * n_dec, f"flash engine: decode "
+                                              f"launches {k1}")
+        else:
+            check((k1, k3, k4) == (0, 0, 0), "the CPU engine launched a "
+                                             "kernel")
+    check(streams["cpu"] == streams[str(dev)],
+          f"flash one-shot: card and CPU greedy streams differ: {streams}")
+    print(f"[4] reduced llama3.2-3b f32 attention_impl=flash one-shot: card "
+          f"== cpu greedy streams, launches flash_attention={k3} "
+          f"decode={k1}")
 
 
 def phase_full_width(dev):
@@ -284,16 +344,16 @@ def phase_full_width(dev):
     while eng.sched.waiting or eng.metrics.decode_steps < 1 or any(
             r.state == "prefill" for r in eng.sched.running):
         eng.step()
-    print("[5] " + decode_profile(eng, 5))
+    print("[5] " + step_profile(eng.step, 5, "decode"))
     while eng.sched.has_work():
         eng.step()
     eng.drain()
     return main_counts
 
 
-def decode_profile(eng, n_steps: int) -> str:
-    """Device-busy share and kernel time by name over ``n_steps`` decode
-    steps, from the profiler's CUDA activity."""
+def step_profile(step, n_steps: int, label: str) -> str:
+    """Device-busy share and kernel time by name over ``n_steps`` calls of
+    ``step``, from the profiler's CUDA activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -302,7 +362,7 @@ def decode_profile(eng, n_steps: int) -> str:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_steps):
-            eng.step()
+            step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kern = {}
@@ -312,11 +372,12 @@ def decode_profile(eng, n_steps: int) -> str:
                 "(anonymous namespace)::", "").split("<")[0].split("(")[0]
             kern[name] = kern.get(name, 0.0) + e.time_range.elapsed_us()
     if not kern:
-        return "decode profile: device time not measured (no CUDA events)"
+        return f"{label} profile: device time not measured (no CUDA events)"
     busy = sum(kern.values()) / 1e3 / n_steps
     top = sorted(kern.items(), key=lambda kv: -kv[1])[:6]
-    return (f"decode profile over {n_steps} steps: {wall * 1e3 / n_steps:.2f}"
-            f" ms per step, device busy {busy:.2f} ms per step "
+    return (f"{label} profile over {n_steps} steps: "
+            f"{wall * 1e3 / n_steps:.2f} ms per step, device busy "
+            f"{busy:.2f} ms per step "
             f"({100 * busy / (wall * 1e3 / n_steps):.0f}%), by kernel (ms "
             f"per step): " + ", ".join(f"{k} {v / 1e3 / n_steps:.3f}"
                                        for k, v in top))
@@ -401,8 +462,340 @@ def phase_kernel_times(dev, main_counts, n_layers):
     return out
 
 
+def _lse_err(m, d, pm, pd):
+    """max |(m + log2 d) - (pm + log2 pd)|: the row statistics are fp32 in
+    every dtype, and their log-sum is what the backward reads."""
+    import torch
+    return (m + torch.log2(d) - pm - torch.log2(pd)).abs().max().item()
+
+
+def phase_flash_parity(dev):
+    """K3 and K4 against their plain versions on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_plain)
+    from repro_torch.kernels.parity import parity_error, tolerance
+    worst, worst_lse = {}, 0.0
+    # (B, Hkv, G, Sq, Sk, D)
+    shapes = [(2, 2, 1, 77, 77, 128), (1, 2, 3, 50, 130, 128),
+              (1, 8, 3, 200, 200, 128), (2, 1, 3, 33, 70, 64)]
+    for shape in shapes:
+        B, Hkv, G, Sq, Sk, D = shape
+        rng = np.random.default_rng(Sq + Sk)
+        for dtn in ("float32", "bfloat16"):
+            dt = getattr(torch, dtn)
+
+            def rand(*shp):
+                return _rand(rng, shp).to(dev, dt)
+
+            q = rand(B, Hkv * G, Sq, D) * D ** -0.5
+            k, v = rand(B, Hkv, Sk, D), rand(B, Hkv, Sk, D)
+            do = rand(B, Hkv * G, Sq, D)
+            tol = tolerance(dt)
+            for causal in (True, False):
+                for intmax in (True, False):
+                    tag = f"{shape} {dtn} causal={causal} intmax={intmax}"
+                    o, m, d = flash_attention(q, k, v, causal=causal,
+                                              intmax=intmax,
+                                              return_stats=True)
+                    torch.cuda.synchronize()
+                    po, pm, pd = flash_attention_plain(
+                        q, k, v, causal=causal, intmax=intmax,
+                        return_stats=True)
+                    errs = {"o": parity_error(o, po),
+                            "lse": _lse_err(m, d, pm, pd)}
+                    worst_lse = max(worst_lse, errs["lse"])
+                    check(errs["o"][1] <= tol and errs["lse"] <= F32_ATOL,
+                          f"K3 {tag}: {errs}")
+                    if intmax:
+                        check(bool(torch.equal(m, torch.ceil(m))),
+                              f"K3 {tag}: IntMax m not integral")
+                    grads = flash_attention_bwd(q, k, v, o, do, m, d,
+                                                causal=causal)
+                    torch.cuda.synchronize()
+                    plain = flash_attention_bwd_plain(q, k, v, o, do, m, d,
+                                                      causal=causal)
+                    for name, g, w in zip(("dq", "dk", "dv"), grads, plain):
+                        check(g.dtype == w.dtype and g.shape == w.shape,
+                              f"K4 {tag} {name}: dtype/shape")
+                        errs[name] = parity_error(g, w)
+                        check(errs[name][1] <= tol, f"K4 {tag}: {errs}")
+                    for key in ("o", "dq", "dk", "dv"):
+                        kern = "K3" if key == "o" else "K4"
+                        w = worst.get((kern, dtn), (0.0, 0.0))
+                        worst[kern, dtn] = (max(w[0], errs[key][0]),
+                                            max(w[1], errs[key][1]))
+    for (kern, dtn), (err, held) in sorted(worst.items()):
+        tol = tolerance(getattr(torch, dtn))
+        print(f"[7] {kern} vs plain, {dtn}: max |err| {err:.3g}, checked "
+              f"error {held:.3g} <= {tol} ({len(shapes) * 4} cases)")
+    print(f"[7] K3 row statistics m + log2(d) vs plain: max |err| "
+          f"{worst_lse:.3g} <= {F32_ATOL}")
+
+
+def _train_run(cfg, params, tc, steps, data):
+    """``steps`` train steps; per step (metrics as floats, seconds, K3 and K4
+    launches), each step ending in a sync."""
+    import torch
+    from repro_torch.models.registry import model_fns
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+    step = make_train_step(model_fns(cfg).loss, tc)
+    opt = adamw.init_state(params)
+    rows = []
+    for _ in range(steps):
+        batch = next(data)
+        c0 = _flash_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        c1 = _flash_counts()
+        rows.append(({k: float(v) for k, v in m.items()}, dt,
+                     (c1[0] - c0[0], c1[1] - c0[1])))
+    return params, rows
+
+
+def phase_train_parity(dev):
+    """Reduced llama3.2-3b, flash, three steps: card against CPU."""
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.registry import (get_config, init_lm_params,
+                                             reduce_config)
+    from repro_torch.models.schema import tree_leaves, tree_map
+    cfg = reduce_config(get_config("llama3.2-3b")).replace(
+        attention_impl="flash")
+    init = init_lm_params(cfg, torch.Generator().manual_seed(0))
+    # lr 1e-4: AdamW's per-element normalization turns float32 gradient
+    # noise into trajectory noise proportional to the step size
+    tc = TrainConfig(total_steps=3, warmup_steps=1, learning_rate=1e-4)
+    out = {}
+    for d in ("cpu", dev):
+        _reset_counts()
+        params = tree_map(lambda a: a.to(d, copy=True), init)
+        data = SyntheticLMData(cfg.vocab_size, 32, 4, seed=0)
+        out[str(d)] = _train_run(cfg, params, tc, 3, data)
+    (cparams, crows), (gparams, grows) = out["cpu"], out[str(dev)]
+    L = cfg.n_layers
+    k3_per_step = (2 if cfg.remat == "full" else 1) * L
+    for s, (c, g) in enumerate(zip(crows, grows)):
+        for key in ("loss", "ce", "grad_norm", "lr"):
+            rel = abs(g[0][key] - c[0][key]) / abs(c[0][key])
+            check(rel <= 1e-4, f"train step {s} {key}: card {g[0][key]} "
+                               f"cpu {c[0][key]}")
+        check(c[2] == (0, 0), "the CPU training run launched a kernel")
+        check(g[2] == (k3_per_step, 2 * L),
+              f"train step {s}: launches K3/K4 {g[2]}")
+    worst = 0.0
+    for c, g in zip(tree_leaves(cparams), tree_leaves(gparams)):
+        rel = (torch.linalg.vector_norm(g.cpu() - c) /
+               torch.linalg.vector_norm(c)).item()
+        worst = max(worst, rel)
+    check(worst <= 1e-4, f"train: final parameters differ by {worst}")
+    print(f"[8] reduced llama3.2-3b f32 flash, 3 steps: card == cpu within "
+          f"1e-4 (losses {[round(r[0]['loss'], 5) for r in grows]}, grad "
+          f"norms {[round(r[0]['grad_norm'], 4) for r in grows]}, worst "
+          f"parameter leaf rel L2 {worst:.3g}), launches K3/K4 per step "
+          f"{grows[0][2]}")
+
+
+def phase_train_full_width(dev):
+    """Full-width llama3.2-3b training: one chunked (plain) step, then three
+    flash steps through train() from the same weights and batch."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import TRAIN_4K, TrainConfig
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.registry import get_config, model_fns
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step, train
+    base = get_config("llama3.2-3b")
+    S, B = TRAIN_4K.seq_len, 1
+    tc = TrainConfig(total_steps=3, warmup_steps=1, learning_rate=3e-4)
+    torch.cuda.empty_cache()
+
+    def init():
+        """The model's own init, then the attention projections rescaled to
+        std 1/sqrt(true fan-in). The reference's init reads a matrix's
+        fan-in from shape[-2], which for wq/wk/wv (d, H, dh) is the head
+        count and for wo (H, dh, d) the head dim: at d 3072 those weights
+        are 5-11x too large and the fp32 gradient norm of one step
+        overflows (a property of the reference, see ROADMAP Queue 3)."""
+        t0 = time.perf_counter()
+        p = model_fns(base).init(torch.Generator(device=dev).manual_seed(0))
+        for name, w in p["blocks"]["mixer"].items():
+            fan_in = w.shape[1] * (w.shape[2] if name == "wo" else 1)
+            w.mul_(math.sqrt(w.shape[-2] / fan_in))   # stacked (L, ...)
+        torch.cuda.synchronize()
+        return p, time.perf_counter() - t0
+
+    # one step with the plain chunked attention
+    cfg = base.replace(attention_impl="chunked")
+    params, t_init = init()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    _, rows = _train_run(cfg, params, tc, 1,
+                         SyntheticLMData(cfg.vocab_size, S, B, seed=0))
+    chunked, t_chunked = rows[0][0], rows[0][1]
+    peak_chunked = torch.cuda.max_memory_allocated()
+    check(_flash_counts() == (0, 0), "chunked step launched K3/K4")
+    del params
+    torch.cuda.empty_cache()
+    print(f"[9] llama3.2-3b fp32 master weights on the card in {t_init:.2f}s;"
+          f" chunked step 0: loss {chunked['loss']:.5f} grad norm "
+          f"{chunked['grad_norm']:.4f}, {t_chunked:.2f}s, peak memory "
+          f"{peak_chunked / 2 ** 30:.2f} GiB")
+
+    # three steps through K3 / K4, driven by train()
+    cfg = base.replace(attention_impl="flash")
+    params, _ = init()
+    torch.cuda.reset_peak_memory_stats()
+    inner = make_train_step(model_fns(cfg).loss, tc)
+    rows = []
+
+    def step(p, o, batch):
+        c0 = _flash_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, m = inner(p, o, batch)
+        torch.cuda.synchronize()
+        c1 = _flash_counts()
+        rows.append(({k: float(v) for k, v in m.items()},
+                     time.perf_counter() - t0,
+                     (c1[0] - c0[0], c1[1] - c0[1])))
+        return p, o, m
+
+    _reset_counts()
+    out = train(train_step=step, params=params,
+                data=SyntheticLMData(cfg.vocab_size, S, B, seed=0), tc=tc,
+                opt_state=adamw.init_state(params), log_every=1)
+    k3, k4 = _flash_counts()
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.n_layers
+    check(len(out["history"]) == 3 and np.isfinite(out["history"]).all(),
+          f"full-width flash: losses {out['history']}")
+    for s, (m, dt, (a, b)) in enumerate(rows):
+        check(np.isfinite(m["grad_norm"]), f"step {s}: grad norm {m}")
+        check((a, b) == (2 * L, 2 * L),
+              f"step {s}: launches K3 {a}, K4 {b} != {2 * L}, {2 * L}")
+    check((k3, k4) == (6 * L, 6 * L), f"launches K3 {k3} K4 {k4}")
+    rel = abs(rows[0][0]["loss"] - chunked["loss"]) / abs(chunked["loss"])
+    check(rel <= 2e-2, f"flash step-0 loss {rows[0][0]['loss']} vs chunked "
+                       f"{chunked['loss']}")
+    # the loss is dominated by the tied logits' scale; the gradient norm
+    # reads every layer's attention backward
+    rel_gn = abs(rows[0][0]["grad_norm"] - chunked["grad_norm"]) / \
+        chunked["grad_norm"]
+    check(rel_gn <= 1e-3, f"flash step-0 grad norm {rows[0][0]['grad_norm']}"
+                          f" vs chunked {chunked['grad_norm']}")
+    for s, (m, dt, (a, b)) in enumerate(rows):
+        print(f"[9] flash step {s}: loss {m['loss']:.5f} grad norm "
+              f"{m['grad_norm']:.4f} lr {m['lr']:.3g}, {dt:.3f}s "
+              f"({B * S / dt:.0f} tokens/s), launches K3 {a} K4 {b}")
+    print(f"[9] full-width flash vs chunked step 0: loss rel diff {rel:.3g} "
+          f"<= 2e-2, grad norm rel diff {rel_gn:.3g} <= 1e-3; flash peak "
+          f"memory {peak / 2 ** 30:.2f} GiB; launches over 3 "
+          f"steps K3 {k3} K4 {k4}")
+    # where a step's time goes: one more step, profiled, after the counts
+    # were read
+    state = [out["params"], out["opt_state"]]
+    batch = next(SyntheticLMData(cfg.vocab_size, S, B, seed=1))
+
+    def profiled():
+        state[0], state[1], _ = inner(state[0], state[1], batch)
+
+    print("[9] " + step_profile(profiled, 1, "training step"))
+    del out, params, state
+    torch.cuda.empty_cache()
+    return (k3, k4)
+
+
+def phase_flash_times(dev, counts, n_layers):
+    """K3 / K4 at the full-width training shape, bf16, causal."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_plain)
+    from repro_torch.kernels.parity import parity_error, tolerance
+    rng = np.random.default_rng(2)
+    B, Hq, Hkv, S, D = 1, 24, 8, 4096, 128
+    bf = torch.bfloat16
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    q = _rand(rng, (B, Hq, S, D), D ** -0.5).to(dev, bf)
+    k = _rand(rng, (B, Hkv, S, D)).to(dev, bf)
+    v = _rand(rng, (B, Hkv, S, D)).to(dev, bf)
+    do = _rand(rng, (B, Hq, S, D)).to(dev, bf)
+    saved = _flash_counts()
+    o, m, d = flash_attention(q, k, v, return_stats=True)
+    po, pm, pd = flash_attention_plain(q, k, v, return_stats=True)
+    err3, held3 = parity_error(o, po)
+    lse3 = _lse_err(m, d, pm, pd)
+    grads = flash_attention_bwd(q, k, v, o, do, m, d)
+    plain = flash_attention_bwd_plain(q, k, v, o, do, m, d)
+    err4, held4 = map(max, zip(*(parity_error(g, w) for g, w in zip(grads,
+                                                                    plain))))
+    tol = tolerance(bf)
+    check(held3 <= tol and lse3 <= F32_ATOL and held4 <= tol,
+          f"full-width shape: K3 o {err3} ({held3}), m + log2(d) {lse3}; "
+          f"K4 {err4} ({held4})")
+    check(bool(torch.equal(m, torch.ceil(m))), "K3: IntMax m not integral")
+    ms3 = _time_ms(lambda: flash_attention(q, k, v, return_stats=True),
+                   flush, iters=10)
+    plain3 = _time_ms(lambda: flash_attention_plain(q, k, v,
+                                                    return_stats=True),
+                      flush, iters=3)
+    ms4 = _time_ms(lambda: flash_attention_bwd(q, k, v, o, do, m, d), flush,
+                   iters=5)
+    plain4 = _time_ms(lambda: flash_attention_bwd_plain(q, k, v, o, do, m,
+                                                        d),
+                      flush, iters=3)
+    # timing and comparison launches do not count
+    flash_attention.launches, flash_attention_bwd.launches = saved
+
+    # the library yardstick: SDPA with scale ln 2 is the base-2 softmax of
+    # the pre-scaled scores (the normalization ignores the max it subtracts)
+    def sdpa(a, b, c):
+        return F.scaled_dot_product_attention(a, b, c, is_causal=True,
+                                              scale=math.log(2),
+                                              enable_gqa=True)
+
+    lib_err = parity_error(sdpa(q, k, v), o)[0]
+    lib3 = _time_ms(lambda: sdpa(q, k, v), flush, iters=10)
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    lo = sdpa(ql, kl, vl)
+    lib4 = _time_ms(lambda: torch.autograd.grad(lo, (ql, kl, vl), do,
+                                                retain_graph=True),
+                    flush, iters=10)
+    pairs = S * (S + 1) // 2 * Hq                  # causal, Sq = Sk
+    el = 2                                          # bf16 bytes
+    qb, kvb = B * Hq * S * D * el, B * Hkv * S * D * el
+    stats = 2 * B * Hq * S * 4
+    bytes3 = qb + 2 * kvb + qb + stats              # q, k, v in; o, m, d out
+    bytes4 = 3 * qb + 2 * kvb + stats + B * Hq * S * D * 4 + \
+        2 * B * Hkv * S * D * 4                    # + dq, dk, dv fp32 out
+    print(f"[10] full-width shape, bf16: K3 vs plain max |err| {err3:.3g} "
+          f"(held {held3:.3g} <= {tol}), m + log2(d) {lse3:.3g} <= "
+          f"{F32_ATOL}; K4 vs plain {err4:.3g} (held {held4:.3g} <= {tol}); "
+          f"SDPA vs K3 {lib_err:.3g}")
+    return [
+        _row("flash_attention", "flash_attention.cu",
+             "src/repro/kernels/flash_attention/flash_attention.py:99",
+             counts[0], 2 * n_layers, err3, ms3, plain3, bytes3,
+             4 * pairs * D, lib3),
+        _row("flash_attention_bwd", "flash_backward.cu",
+             "src/repro/kernels/flash_attention/flash_backward.py:119",
+             counts[1], 2 * n_layers, err4, ms4, plain4, bytes4,
+             10 * pairs * D, lib4)]    # s, dP, dV, dK, dQ: 2·D each
+
+
 def _row(name, src, replaces, launches, per_step, err, ms, plain, nbytes,
-         flops):
+         flops, library=None):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
     return {"name": name, "route": "cuda",
@@ -413,7 +806,7 @@ def _row(name, src, replaces, launches, per_step, err, ms, plain, nbytes,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bound_ms_f32_peak": max(
                 t_bytes, flops / PEAK_FLOPS["float32"] * 1e3),
-            "library_ms": None}
+            "library_ms": library}
 
 
 def main() -> int:
@@ -447,12 +840,20 @@ def main() -> int:
     from repro_torch.models.registry import get_config
     print("[6] sm clock, power draw, temperature: " +
           card_line("clocks.sm,power.draw,temperature.gpu"))
-    kernels = phase_kernel_times(dev, main_counts,
-                                 get_config("llama3.2-3b").n_layers)
+    n_layers = get_config("llama3.2-3b").n_layers
+    kernels = phase_kernel_times(dev, main_counts, n_layers)
+    phase_flash_parity(dev)
+    phase_train_parity(dev)
+    train_counts = phase_train_full_width(dev)
+    print("[10] sm clock, power draw, temperature: " +
+          card_line("clocks.sm,power.draw,temperature.gpu"))
+    kernels += phase_flash_times(dev, train_counts, n_layers)
     for k in kernels:
-        print(f"[6] {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}"
-              f" ms, bound {k['bound_ms']:.4f} ms by {k['bound_by']}), "
-              f"{card}")
+        lib = "" if k["library_ms"] is None else \
+            f", library {k['library_ms']:.4f} ms"
+        print(f"[kernels] {k['name']}: {k['ms']:.4f} ms (plain "
+              f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms by "
+              f"{k['bound_by']}{lib}), {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Model configuration dataclasses.
+"""Model, shape and run configuration dataclasses.
 
 Field for field the same as the JAX package's ``repro.configs.base`` so a
 config means the same model in both packages; only the dtype accessors
@@ -85,8 +85,10 @@ class ModelConfig:
     # flags for tests / interpret-mode kernels
     interpret_kernels: bool = False
     # beyond-paper optimizations of the JAX package, kept so configs agree
-    # field for field; of these the port reads only ``opt_int8_kv`` (an
-    # int8 KV pool by default)
+    # field for field; of these the port reads ``opt_int8_kv`` (an int8 KV
+    # pool by default) and ``opt_bf16_params`` (matrix parameters cast to
+    # the compute dtype once per forward); the others shape sharding,
+    # which the port does not have yet
     opt_bf16_params: bool = False
     opt_cache_seq_shard: bool = False
     opt_dus_cache: bool = False
@@ -115,5 +117,47 @@ class ModelConfig:
     def param_dtype_(self) -> torch.dtype:
         return getattr(torch, self.param_dtype)
 
+    def with_opts(self, on: bool = True) -> "ModelConfig":
+        return self.replace(opt_bf16_params=on, opt_cache_seq_shard=on,
+                            opt_dus_cache=on, opt_moe_shard_map=on,
+                            opt_seq_parallel=on, opt_mla_absorbed=on,
+                            opt_onehot_embed=on, opt_serve_resident=on,
+                            opt_ring_attention=on,
+                            opt_int8_kv=(on and self.family in
+                                         ("dense", "moe") and
+                                         self.mla is None))
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell."""
+
+    name: str
+    kind: str                # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+# The training shape cell of the LM family (sequence length 4096).
+TRAIN_4K = ShapeConfig("train_4k", "train", 4096, 256)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    grad_clip: float = 1.0
+    z_loss: float = 1e-4
+    microbatches: int = 1        # gradient accumulation
+    grad_compression: bool = False  # int8 error-feedback allreduce (the
+                                    # data-parallel step; not ported yet)
+    checkpoint_every: int = 100
+    keep_checkpoints: int = 3
+    seed: int = 0

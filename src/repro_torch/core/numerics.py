@@ -12,6 +12,7 @@ import torch
 
 # exact in double precision; cast at use sites.
 LOG2_E = math.log2(math.e)
+LN_2 = math.log(2.0)
 
 # A very negative (but finite, representable in bf16) score used for masking.
 # -inf is avoided inside online recurrences: (-inf) - (-inf) = nan.

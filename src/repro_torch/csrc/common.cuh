@@ -81,6 +81,51 @@ __device__ __forceinline__ void smx_stage_kv(
   }
 }
 
+// Stage rows 0 .. rows-1 of one or two contiguous row-major sources (row
+// stride D elements) into shared memory as fp32: row r of a lands at
+// a_s[r * ld + d], of b (may be null) at b_s[r * ld + d]. Rows rows ..
+// pad_rows-1 are zero-filled, so a partial tile never exposes stale or
+// uninitialized shared memory to the products. 16-byte vector loads where
+// the width and the sources' alignment allow it, all issued before any is
+// used.
+template <typename T>
+__device__ __forceinline__ void smx_stage_rows(
+    const T* __restrict__ a, const T* __restrict__ b, int rows, int pad_rows,
+    int D, float* a_s, float* b_s, int ld) {
+  constexpr int VEC = 16 / sizeof(T);
+  const bool vec =
+      D % VEC == 0 && (reinterpret_cast<uintptr_t>(a) |
+                       reinterpret_cast<uintptr_t>(b)) % 16 == 0;
+  const int per_row = vec ? D / VEC : D;
+  for (int i = threadIdx.x; i < rows * per_row; i += blockDim.x) {
+    const int r = i / per_row;
+    if (vec) {
+      const int c = (i % per_row) * VEC;
+      const size_t off = static_cast<size_t>(r) * D + c;
+      const uint4 aw = *reinterpret_cast<const uint4*>(a + off);
+      uint4 bw = aw;
+      if (b != nullptr) bw = *reinterpret_cast<const uint4*>(b + off);
+      const T* ae = reinterpret_cast<const T*>(&aw);
+      const T* be = reinterpret_cast<const T*>(&bw);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        a_s[r * ld + c + j] = smx_to_f32(ae[j]);
+        if (b != nullptr) b_s[r * ld + c + j] = smx_to_f32(be[j]);
+      }
+    } else {
+      const int d = i % per_row;
+      const size_t off = static_cast<size_t>(r) * D + d;
+      a_s[r * ld + d] = smx_to_f32(a[off]);
+      if (b != nullptr) b_s[r * ld + d] = smx_to_f32(b[off]);
+    }
+  }
+  for (int i = rows * D + threadIdx.x; i < pad_rows * D; i += blockDim.x) {
+    const int r = i / D, d = i % D;
+    a_s[r * ld + d] = 0.f;
+    if (b != nullptr) b_s[r * ld + d] = 0.f;
+  }
+}
+
 // Set the dynamic shared-memory limit of a kernel once it needs more than
 // the 48 KB default.
 template <typename K>

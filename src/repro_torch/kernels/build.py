@@ -42,8 +42,20 @@ _SIGNATURES = {
     # q, k_pool, v_pool, k_scale, v_scale, tables, q_pos0, out,
     # B, Hq, Hkv, Sq, D, BS, Wp, BQ, q_dtype, kv_dtype, intmax, stream
     "smx_paged_prefill": ([_P] * 8 + [_I] * 11 + [_P], _I),
+    # q, k, v, out, m, d, B, Hq, Hkv, Sq, Sk, D, BQ, dtype, causal, intmax,
+    # stream
+    "smx_flash_fwd": ([_P] * 6 + [_I] * 10 + [_P], _I),
+    # q, k, v, dout, m, d, delta, dk, dv, B, Hq, Hkv, Sq, Sk, D, dtype,
+    # causal, stream
+    "smx_flash_bwd_dkv": ([_P] * 9 + [_I] * 8 + [_P], _I),
+    # q, k, v, dout, m, d, delta, dq, B, Hq, Hkv, Sq, Sk, D, BQ, dtype,
+    # causal, stream
+    "smx_flash_bwd_dq": ([_P] * 8 + [_I] * 9 + [_P], _I),
     "smx_paged_decode_smem": ([_I] * 5, ctypes.c_longlong),
     "smx_paged_prefill_smem": ([_I] * 4, ctypes.c_longlong),
+    "smx_flash_fwd_smem": ([_I] * 3, ctypes.c_longlong),
+    "smx_flash_bwd_dkv_smem": ([_I], ctypes.c_longlong),
+    "smx_flash_bwd_dq_smem": ([_I] * 3, ctypes.c_longlong),
     "smx_error_string": ([_I], ctypes.c_char_p),
 }
 

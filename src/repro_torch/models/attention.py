@@ -1,15 +1,21 @@
-"""Attention with Softermax (the serving subset of the JAX package's
+"""Attention with Softermax (the dense subset of the JAX package's
 ``repro.models.attention``).
 
-* ``chunked_attention`` — the online Softermax state (running IntMax,
-  running denominator, accumulator) carried over KV chunks in plain torch:
-  the one-shot prefill path.
-* ``quantize_kv`` / ``dequantize_kv`` — the int8 KV row format.
+``attention_apply`` (train and one-shot prefill) selects the
+implementation by ``cfg.attention_impl``:
 
-Every float softmax variant runs through ``exp2``: the e-base ablation
-folds log2(e) into the q scale (``_mode``). The ``flash`` impl is the dense
-flash-attention kernel, which the port has not written yet, so
-``attention_apply`` refuses it rather than run something else.
+* ``chunked`` — the online Softermax state (running IntMax, running
+  denominator, accumulator) carried over KV chunks in plain torch;
+  differentiable through autograd.
+* ``flash``   — the dense flash-attention kernels (K3 forward, K4 backward)
+  through the trainable op ``flash_attention_op``; on CPU tensors their
+  plain versions.
+* ``naive``   — the full score matrix through the fixed-point Softermax;
+  not ported yet, so it raises.
+
+``quantize_kv`` / ``dequantize_kv`` are the int8 KV row format. Every float
+softmax variant runs through ``exp2``: the e-base ablation folds log2(e)
+into the q scale (``_mode``).
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.numerics import LOG2_E, NEG_INF
+from repro_torch.kernels.flash_attention import flash_attention_op
 from repro_torch.models.layers import rmsnorm, rope
 from repro_torch.models.schema import ParamSpec
 
@@ -153,21 +160,34 @@ def chunked_attention(
 
 
 def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
-                    positions: torch.Tensor):
-    """Causal self attention for prefill, ``attention_impl="chunked"``.
-    Returns (y, k, v): the output and the K/V rows to cache."""
-    if cfg.attention_impl != "chunked" or cfg.softmax_impl == \
-            "softermax_fixed":
-        raise NotImplementedError(
-            f"attention_impl={cfg.attention_impl!r} / softmax_impl="
-            f"{cfg.softmax_impl!r}: only the chunked float path is ported "
-            "(the flash kernel and the fixed-point path come later)")
+                    positions: torch.Tensor, causal: bool = True,
+                    window: int = 0, return_kv: bool = False):
+    """Self attention for train and prefill. x (B, S, d) → y (B, S, d), and
+    with ``return_kv`` also the cacheable (k, v) (B, Hkv, S, Dh).
+
+    As in the reference, the ``flash`` impl ignores ``window`` (the kernel
+    has no window mask); ``chunked`` honours it."""
     _, intmax = _mode(cfg)
     q, k, v = _project_qkv(params, x, cfg, positions)
     q = q_scale(q, cfg)
-    o = chunked_attention(q, k, v, causal=True, intmax=intmax,
-                          chunk=cfg.attention_chunk)
-    return _out_proj(params, o, cfg), k, v
+    impl = cfg.attention_impl
+    if cfg.softmax_impl == "softermax_fixed":
+        impl = "naive"      # QAT mode materializes scores (finetuning only)
+    if impl == "chunked":
+        o = chunked_attention(q, k, v, causal=causal, intmax=intmax,
+                              window=window, chunk=cfg.attention_chunk)
+    elif impl == "flash":
+        o = flash_attention_op(q, k, v, causal, intmax)
+    elif impl == "naive":
+        raise NotImplementedError(
+            "attention_impl='naive' (and softmax_impl='softermax_fixed') "
+            "needs the fixed-point Softermax, which is not ported yet")
+    else:
+        raise ValueError(impl)
+    y = _out_proj(params, o, cfg)
+    if return_kv:
+        return y, k, v
+    return y
 
 
 INT8_KV_MAX = 127.0

@@ -1,4 +1,5 @@
-"""Shared neural-net layers: norms, MLPs, embeddings, rotary embeddings.
+"""Shared neural-net layers: norms, MLPs, embeddings, rotary embeddings,
+the cross-entropy loss.
 
 Functional, as in the JAX package: ``*_schema`` returns ParamSpecs, the
 apply functions take the parameter tensors. Compute runs in
@@ -113,3 +114,24 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     The JAX package's own frequency formula, ``exp(-log θ · i / half)`` in
     fp32 (not torch's usual ``θ^(-2i/d)``), so the angles agree."""
     return apply_rope(x, *rope_cos_sin(positions, theta, x.shape[-1] // 2))
+
+
+def cross_entropy_loss(lg: torch.Tensor, labels: torch.Tensor,
+                       z_loss: float = 0.0, vocab_size=None) -> torch.Tensor:
+    """Token-mean cross entropy with optional z-loss; ignores labels < 0.
+    Padded vocab entries (ids >= ``vocab_size``) are masked to -1e9 before
+    the log-sum-exp."""
+    if vocab_size is not None and vocab_size < lg.shape[-1]:
+        mask = torch.arange(lg.shape[-1], device=lg.device) < vocab_size
+        lg = torch.where(mask, lg, torch.full((), -1e9, dtype=lg.dtype,
+                                              device=lg.device))
+    valid = labels >= 0
+    labels_c = torch.clamp(labels, min=0).long()
+    lse = torch.logsumexp(lg, dim=-1)
+    ll = torch.gather(lg, -1, labels_c[..., None])[..., 0]
+    nll = lse - ll
+    if z_loss:
+        nll = nll + z_loss * lse ** 2
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    denom = torch.clamp(valid.sum(), min=1)
+    return nll.sum() / denom

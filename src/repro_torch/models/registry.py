@@ -1,13 +1,16 @@
 """Architecture registry: ``--arch <id>`` → config; reduced CPU configs;
-parameter init for the dense LM."""
+parameter init and the uniform model interface (``model_fns``) for the
+dense LM."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
+from types import SimpleNamespace
 
 import torch
 
 from repro_torch.configs.base import MLAConfig, ModelConfig, SSMConfig
+from repro_torch.models import lm as lm_mod
 from repro_torch.models.lm import lm_schema
 from repro_torch.models.schema import init_params
 
@@ -77,3 +80,17 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
 def init_lm_params(cfg: ModelConfig, generator: torch.Generator):
     """Random LM parameters in ``cfg.param_dtype`` on ``generator.device``."""
     return init_params(lm_schema(cfg), generator, cfg.param_dtype_)
+
+
+def model_fns(cfg: ModelConfig) -> SimpleNamespace:
+    """The dense family's training interface, as in the JAX registry:
+    ``schema``, ``init(generator)`` (parameters on ``generator.device``) and
+    ``loss(params, batch)``. The loss keeps ``lm_loss``'s own z-loss
+    weight, as the reference's registry does."""
+    schema = lm_schema(cfg)
+    return SimpleNamespace(
+        schema=schema,
+        init=lambda generator: init_params(schema, generator,
+                                           cfg.param_dtype_),
+        loss=lambda p, batch: lm_mod.lm_loss(p, batch, cfg),
+    )

@@ -39,6 +39,16 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_leaves(tree):
+    """The leaves of a nested dict (keys in sorted order, as JAX flattens
+    dicts) or list, depth first."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for t in tree for x in tree_leaves(t)]
+    return [tree]
+
+
 def stack_schema(schema: Schema, n_layers: int) -> Schema:
     """Prepend an (n_layers,) layer dimension to every leaf."""
     return tree_map(lambda ps: ParamSpec((n_layers,) + ps.shape,

@@ -159,7 +159,8 @@ def paged_prefill(params, tokens: torch.Tensor, last_pos: torch.Tensor,
             y = attn_mod._out_proj(bp["mixer"], o, cfg)
         else:
             y, k, v = attn_mod.attention_apply(bp["mixer"], h, cfg,
-                                               positions=positions)
+                                               positions=positions,
+                                               causal=True, return_kv=True)
         x = x + y
         x = x + _ffn(bp, x, cfg)
         ks.append(k)

@@ -7,18 +7,25 @@ run with ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
 not need).
 
 Tolerances: float32 outputs within 1e-5 of the plain version (the kernel
-sums in another order, every rescale is exact); bfloat16 outputs within
-2e-2 (one bf16 rounding of values of order 1).
+sums in another order, every rescale is exact). The paged kernels'
+bfloat16 outputs within 2e-2 (one bf16 rounding of values of order 1). The
+flash kernels' bfloat16 outputs and gradients are held element by element
+to their own size (``repro_torch.kernels.parity``, as ``chip_smoke.py``
+holds them), and their fp32 row statistics to 1e-5 in every dtype.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention import (
+    flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+    flash_attention_op, flash_attention_plain)
 from repro_torch.kernels.flash_decode_paged import (flash_decode_paged,
                                                     paged_decode_ref,
                                                     paged_decode_split_ref)
 from repro_torch.kernels.flash_prefill_paged import (flash_prefill_paged,
                                                      paged_prefill_ref)
+from repro_torch.kernels.parity import F32_ATOL, parity_error, tolerance
 from repro_torch.models.attention import quantize_kv
 
 pytestmark = pytest.mark.cuda
@@ -121,6 +128,63 @@ def test_launch_counters_count_launches_only(cuda_device):
                         torch.tensor([5], dtype=torch.int32,
                                      device=cuda_device))
     assert flash_prefill_paged.launches == before + 1
+
+
+# (B, Hkv, G, Sq, Sk, D): Sq = Sk and Sq < Sk, lengths off every tile
+FLASH_SHAPES = [(2, 2, 1, 77, 77, 128), (1, 2, 3, 50, 130, 128),
+                (1, 8, 3, 200, 200, 128), (2, 1, 3, 33, 70, 64)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("intmax", [True, False])
+@pytest.mark.parametrize("shape", FLASH_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_flash_kernels_match_plain(cuda_device, dtype, causal, intmax,
+                                   shape):
+    """K3 (o, m, d) and K4 (dq, dk, dv) against their plain versions."""
+    B, Hkv, G, Sq, Sk, D = shape
+    rng = np.random.default_rng(Sq + Sk)
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+
+    def rand(*shp):
+        return torch.from_numpy(rng.normal(size=shp).astype(np.float32)) \
+            .to(cuda_device, dt)
+
+    q = rand(B, Hkv * G, Sq, D) * D ** -0.5
+    k, v = rand(B, Hkv, Sk, D), rand(B, Hkv, Sk, D)
+    do = rand(B, Hkv * G, Sq, D)
+    o, m, d = flash_attention(q, k, v, causal=causal, intmax=intmax,
+                              return_stats=True)
+    torch.cuda.synchronize()
+    po, pm, pd = flash_attention_plain(q, k, v, causal=causal, intmax=intmax,
+                                       return_stats=True)
+    tol = tolerance(dt)
+    assert parity_error(o, po)[1] <= tol
+    lse, plse = m + torch.log2(d), pm + torch.log2(pd)
+    assert (lse - plse).abs().max().item() <= F32_ATOL
+    if intmax:
+        assert torch.equal(m, pm)
+    grads = flash_attention_bwd(q, k, v, o, do, m, d, causal=causal)
+    torch.cuda.synchronize()
+    plain = flash_attention_bwd_plain(q, k, v, o, do, m, d, causal=causal)
+    for got, want in zip(grads, plain):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert parity_error(got, want)[1] <= tol
+
+
+def test_flash_launch_counters(cuda_device):
+    """One count per forward launch and one per backward kernel (two per
+    backward); the plain versions launch nothing."""
+    q = torch.randn(1, 4, 40, 64, device=cuda_device, requires_grad=True)
+    k = torch.randn(1, 2, 40, 64, device=cuda_device, requires_grad=True)
+    v = torch.randn(1, 2, 40, 64, device=cuda_device, requires_grad=True)
+    f0, b0 = flash_attention.launches, flash_attention_bwd.launches
+    flash_attention_op(q, k, v).sum().backward()
+    flash_attention_plain(q.detach(), k.detach(), v.detach())
+    assert flash_attention.launches == f0 + 1
+    assert flash_attention_bwd.launches == b0 + 2
+    assert q.grad.shape == q.shape and k.grad.shape == k.shape
 
 
 def test_engine_sampling_on_the_card(cuda_device):

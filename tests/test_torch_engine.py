@@ -143,3 +143,26 @@ def test_temperature_sampling_reproducible_from_the_seed(model):
     assert runs[0] == runs[1]
     assert runs[0] != runs[2]
     assert all(0 <= t < tcfg.vocab_size for r in runs for s in r for t in s)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "bf16"])
+def test_flash_one_shot_prefill_matches_jax(model, kv_dtype):
+    """``attention_impl="flash"``: one-shot prefill runs the dense
+    flash-attention op (the JAX side its Pallas kernel in interpret mode,
+    the port its plain version on CPU tensors); greedy streams and block
+    tables are exactly equal, with a float32 and a bfloat16 pool."""
+    jcfg, tcfg, jparams, tparams = model
+    jcfg = jcfg.replace(attention_impl="flash", interpret_kernels=True)
+    tcfg = tcfg.replace(attention_impl="flash")
+    kw = dict(block_size=BS, num_blocks=40, max_batch=4, max_len=48,
+              kv_dtype=kv_dtype)
+    jeng = JaxEngine(jcfg, jparams, **kw)
+    teng = ContinuousEngine(tcfg, tparams, device="cpu", **kw)
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(1, tcfg.vocab_size, n).astype(np.int32)
+               for n in (13, 21, 30)]
+    for eng in (jeng, teng):
+        for p in prompts:
+            eng.submit(p, 6)
+    jres, tres = _lockstep(jeng, teng)
+    _assert_same_streams(jres, tres)

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.serve import ContinuousEngine
 from repro_torch.utils.device import resolve_device
 
@@ -38,6 +39,7 @@ def test_entry_points_default_to_the_card():
     assert inspect.signature(ContinuousEngine).parameters["device"] \
         .default is None
     assert launch_serve.parse_args([]).device == "cuda"
+    assert launch_train.parse_args([]).device == "cuda"
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"
     else:
