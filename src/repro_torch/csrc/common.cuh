@@ -1,4 +1,4 @@
-// Shared helpers for the paged Softermax attention kernels.
+// Shared helpers for the Softermax attention kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -123,6 +123,40 @@ __device__ __forceinline__ void smx_stage_rows(
     const int r = i / D, d = i % D;
     a_s[r * ld + d] = 0.f;
     if (b != nullptr) b_s[r * ld + d] = 0.f;
+  }
+}
+
+// The second pass of a split decode: softermax_merge of the partial states
+// (m, d, acc) of the S split lanes of each (sequence, KV head) block bh, then
+// softermax_finalize (acc / d, d == 0 -> 0) into the output's dtype.
+// Layouts: acc_part (B*Hkv, S, G, D), m_part / d_part (B*Hkv, S, G), out
+// (B*Hkv, G, D). One block per bh.
+template <typename QT>
+__global__ void smx_merge_lanes_kernel(const float* __restrict__ acc_part,
+                                       const float* __restrict__ m_part,
+                                       const float* __restrict__ d_part,
+                                       QT* __restrict__ out, int G, int D,
+                                       int S, int intmax) {
+  const int bh = blockIdx.x;
+  for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
+    const int g = i / D;
+    const int d = i % D;
+    float m_star = m_part[(static_cast<size_t>(bh) * S) * G + g];
+    for (int s = 1; s < S; ++s)
+      m_star = fmaxf(m_star, m_part[(static_cast<size_t>(bh) * S + s) * G + g]);
+    float dsum = 0.f;
+    float asum = 0.f;
+    for (int s = 0; s < S; ++s) {
+      const size_t p = static_cast<size_t>(bh) * S + s;
+      const float dd = d_part[p * G + g];
+      // d == 0 marks the identity state: it drops out exactly
+      const float sc = dd > 0.f ? smx_rescale(m_part[p * G + g] - m_star, intmax)
+                                : 0.f;
+      dsum += dd * sc;
+      asum += acc_part[(p * G + g) * D + d] * sc;
+    }
+    const float o = dsum > 0.f ? asum / dsum : 0.f;
+    out[(static_cast<size_t>(bh) * G + g) * D + d] = smx_from_f32<QT>(o);
   }
 }
 

@@ -235,36 +235,6 @@ __global__ void __launch_bounds__(DEC_THREADS) paged_decode_kernel(
   }
 }
 
-// softermax_merge over the S split lanes, then softermax_finalize.
-template <typename QT>
-__global__ void paged_decode_merge_kernel(const float* __restrict__ acc_part,
-                                          const float* __restrict__ m_part,
-                                          const float* __restrict__ d_part,
-                                          QT* __restrict__ out, int G, int D,
-                                          int S, int intmax) {
-  const int bh = blockIdx.x;
-  for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
-    const int g = i / D;
-    const int d = i % D;
-    float m_star = m_part[(static_cast<size_t>(bh) * S) * G + g];
-    for (int s = 1; s < S; ++s)
-      m_star = fmaxf(m_star, m_part[(static_cast<size_t>(bh) * S + s) * G + g]);
-    float dsum = 0.f;
-    float asum = 0.f;
-    for (int s = 0; s < S; ++s) {
-      const size_t p = static_cast<size_t>(bh) * S + s;
-      const float dd = d_part[p * G + g];
-      // d == 0 marks the identity state: it drops out exactly
-      const float sc = dd > 0.f ? smx_rescale(m_part[p * G + g] - m_star, intmax)
-                                : 0.f;
-      dsum += dd * sc;
-      asum += acc_part[(p * G + g) * D + d] * sc;
-    }
-    const float o = dsum > 0.f ? asum / dsum : 0.f;
-    out[(static_cast<size_t>(bh) * G + g) * D + d] = smx_from_f32<QT>(o);
-  }
-}
-
 size_t decode_smem(int G, int D, int T, int BS, int spl) {
   (void)BS;
   return sizeof(float) * decode_smem_floats(G, D) +
@@ -293,7 +263,7 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
       BS, Wp, T, S, spl, intmax);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  paged_decode_merge_kernel<QT><<<B * Hkv, DEC_THREADS, 0, stream>>>(
+  smx_merge_lanes_kernel<QT><<<B * Hkv, DEC_THREADS, 0, stream>>>(
       static_cast<const float*>(acc_part), static_cast<const float*>(m_part),
       static_cast<const float*>(d_part), static_cast<QT*>(out), G, D, S,
       intmax);

@@ -51,8 +51,12 @@ _SIGNATURES = {
     # q, k, v, dout, m, d, delta, dq, B, Hq, Hkv, Sq, Sk, D, BQ, dtype,
     # causal, stream
     "smx_flash_bwd_dq": ([_P] * 8 + [_I] * 9 + [_P], _I),
+    # q, k, v, lengths, acc, m, d, out, B, Hq, Hkv, S, D, lane_rows, n_split,
+    # q_dtype, kv_dtype, intmax, stream
+    "smx_decode": ([_P] * 8 + [_I] * 10 + [_P], _I),
     "smx_paged_decode_smem": ([_I] * 5, ctypes.c_longlong),
     "smx_paged_prefill_smem": ([_I] * 4, ctypes.c_longlong),
+    "smx_decode_smem": ([_I] * 2, ctypes.c_longlong),
     "smx_flash_fwd_smem": ([_I] * 3, ctypes.c_longlong),
     "smx_flash_bwd_dkv_smem": ([_I], ctypes.c_longlong),
     "smx_flash_bwd_dq_smem": ([_I] * 3, ctypes.c_longlong),

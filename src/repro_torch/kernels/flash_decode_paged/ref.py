@@ -2,9 +2,10 @@
 
 ``gather_kv`` materializes a request's logical cache from the pool through
 its block table; ``paged_decode_ref`` is then the closed-form Softermax
-decode on the gathered cache — the CPU execution path of the serving
-engine. KV is gathered once per *KV* head and queries are reshaped to
-``(B, Hkv, group, …)``, so KV is never expanded across the query group.
+decode (``flash_decode.ref.decode_ref``) on the gathered cache — the CPU
+execution path of the serving engine. KV is gathered once per *KV* head
+and queries are reshaped to ``(B, Hkv, group, …)``, so KV is never
+expanded across the query group.
 
 ``paged_decode_split_ref`` mirrors the kernel's split-K structure: the
 padded KV walk is cut into ``split_k`` partitions, each reduced to its
@@ -18,8 +19,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.numerics import NEG_INF
-from repro_torch.core.softermax import (softermax, softermax_finalize,
-                                        softermax_merge, softmax_base2)
+from repro_torch.core.softermax import softermax_finalize, softermax_merge
+from repro_torch.kernels.flash_decode.ref import decode_ref
 
 
 def split_layout(W: int, kv_tile_blocks: int, split_k: int):
@@ -68,22 +69,6 @@ def gather_kv_dequant(pool: torch.Tensor, scales, block_tables: torch.Tensor,
         return g
     s = gather_scales(scales, block_tables)
     return (g.float() * s[..., None].float()).to(dtype)
-
-
-def decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               lengths: torch.Tensor, *, intmax: bool = True) -> torch.Tensor:
-    """Closed-form decode over contiguous caches: q (B, Hq, D) pre-scaled,
-    k/v (B, Hkv, S, D), lengths (B,)."""
-    B, Hq, D = q.shape
-    _, Hkv, S, _ = k.shape
-    qg = q.reshape(B, Hkv, Hq // Hkv, D).float()
-    s = qg @ k.float().transpose(-1, -2)              # (B, Hkv, G, S)
-    mask = (torch.arange(S, device=q.device)[None, :] <
-            lengths.to(q.device)[:, None])[:, None, None, :]
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    p = softermax(s) if intmax else softmax_base2(s)
-    o = p @ v.float()
-    return o.reshape(B, Hq, D).to(q.dtype)
 
 
 def paged_decode_ref(q, k_pool, v_pool, block_tables, lengths, *,

@@ -1,12 +1,17 @@
-"""Serving launcher: the continuous-batching engine over the paged KV pool.
+"""Serving launcher: the static-slot engine over a contiguous cache
+(``--engine static``, the default) or the continuous-batching engine over
+the paged KV pool (``--engine paged``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
-        --batch 8 --prompt-len 512 --max-new 32 --block-size 16 \
-        --num-blocks 2048 --prefill-chunk 256
+        --batch 8 --prompt-len 1024 --max-new 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
+        --engine paged --batch 8 --prompt-len 512 --max-new 32 \
+        --block-size 16 --num-blocks 2048 --prefill-chunk 256
 
 Runs on the CUDA card by default; ``--device cpu`` runs the plain PyTorch
 versions of the kernels instead (with ``--reduced`` for a CPU-sized model).
-Weights are random, drawn from ``--seed``; prompts too.
+Weights are random, drawn from ``--seed``; prompts too. The paged-engine
+options are ignored by the static engine.
 """
 from __future__ import annotations
 
@@ -19,7 +24,8 @@ import torch
 
 from repro_torch.models.registry import (GRID_ARCHS, get_config,
                                          init_lm_params, reduce_config)
-from repro_torch.serve import ContinuousEngine, check_invariants
+from repro_torch.serve import (ContinuousEngine, ServeEngine,
+                               check_invariants)
 from repro_torch.utils.device import resolve_device
 
 log = logging.getLogger("repro_torch.launch.serve")
@@ -32,15 +38,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda",
                     help="device to serve on (default: the CUDA card; "
                          "'cpu' runs the kernels' plain versions)")
+    ap.add_argument("--engine", choices=("static", "paged"),
+                    default="static")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--block-size", type=int, default=16,
-                    help="tokens per physical KV block")
+                    help="paged engine: tokens per physical KV block")
     ap.add_argument("--num-blocks", type=int, default=128,
-                    help="physical blocks in the pool")
+                    help="paged engine: physical blocks in the pool")
     ap.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="radix-tree prompt-prefix reuse on the block pool")
@@ -81,6 +89,16 @@ def main(argv=None) -> None:
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(1, cfg.vocab_size,
                            (args.batch, args.prompt_len)).astype(np.int32)
+    if args.engine == "static":
+        eng = ServeEngine(cfg, params, max_len=args.prompt_len + args.max_new,
+                          device=device)
+        del params
+        t0 = time.time()
+        res = eng.generate(prompts, args.max_new,
+                           temperature=args.temperature, seed=args.seed)
+        _report(cfg, device, [r.tolist() for r in res.tokens],
+                time.time() - t0, "static")
+        return
     eng = ContinuousEngine(
         cfg, params, block_size=args.block_size, num_blocks=args.num_blocks,
         max_batch=args.batch, max_len=args.prompt_len + args.max_new,
@@ -110,9 +128,13 @@ def main(argv=None) -> None:
         log.info("prefix cache[%s]: hit %d/%d prompt tokens, %d COW",
                  args.evict_policy, cs.hit_tokens, cs.lookup_tokens,
                  m.cow_copies)
+    _report(cfg, device, rows, dt, "paged")
+
+
+def _report(cfg, device, rows, dt, engine) -> None:
     toks = sum(len(r) for r in rows)
-    log.info("%s on %s: %d tokens in %.2fs (%.1f tok/s, first call "
-             "included)", cfg.name, device, toks, dt, toks / dt)
+    log.info("%s[%s] on %s: %d tokens in %.2fs (%.1f tok/s, first call "
+             "included)", cfg.name, engine, device, toks, dt, toks / dt)
     for i, row in enumerate(rows[:2]):
         log.info("seq%d: %s", i, row)
 

@@ -13,6 +13,12 @@ implementation by ``cfg.attention_impl``:
 * ``naive``   — the full score matrix through the fixed-point Softermax;
   not ported yet, so it raises.
 
+``attention_decode`` is the one-token step of the static engine over a
+contiguous ``(B, Hkv, S, Dh)`` cache (linear, sliding window, ring buffer,
+int8 rows with per-row scales). It writes the new K/V row **in place** and
+attends through the decode kernel K5 (``kernels/flash_decode``) on the
+card, or through the plain ``_masked_decode`` where the JAX package does.
+
 ``quantize_kv`` / ``dequantize_kv`` are the int8 KV row format. Every float
 softmax variant runs through ``exp2``: the e-base ablation folds log2(e)
 into the q scale (``_mode``).
@@ -27,7 +33,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.numerics import LOG2_E, NEG_INF
 from repro_torch.kernels.flash_attention import flash_attention_op
-from repro_torch.models.layers import rmsnorm, rope
+from repro_torch.kernels.flash_decode import flash_decode_op
+from repro_torch.models.layers import apply_rope, rmsnorm, rope, rope_cos_sin
 from repro_torch.models.schema import ParamSpec
 
 
@@ -208,3 +215,118 @@ def quantize_kv(t: torch.Tensor):
 def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
                   dtype: torch.dtype) -> torch.Tensor:
     return (q.float() * scale[..., None].float()).to(dtype)
+
+
+def attention_decode(params, x1: torch.Tensor, cfg: ModelConfig, *,
+                     cache_k: torch.Tensor, cache_v: torch.Tensor,
+                     cache_len: torch.Tensor, window: int = 0,
+                     ring: bool = False, cache_k_scale=None,
+                     cache_v_scale=None, rope_cs=None):
+    """One decode token. x1 (B, d); cache_k/cache_v (B, Hkv, S, Dh), int8
+    with f32 scales (B, Hkv, S) under ``opt_int8_kv``; cache_len (B,)
+    tokens cached so far. Returns (y1 (B, d), cache_k, cache_v[, scales]).
+
+    The new K/V row (quantized first for an int8 cache) is written **in
+    place** at slot ``cache_len`` (``cache_len % S`` for a ``ring`` buffer,
+    whose size is the window); the returned caches are the arguments. The
+    reference rewrites the whole cache with a one-hot select, which drops
+    a write at ``cache_len >= S``; here a linear cache needs
+    ``cache_len < S``. ``opt_dus_cache`` writes every row at
+    ``cache_len[0]`` (all sequences share the position), clamped into the
+    cache as ``dynamic_update_slice`` clamps it. ``rope_cs`` is the RoPE
+    rotation of the positions ``cache_len`` (``rope_cos_sin``), computed
+    once per step by the caller; by default it is computed here.
+
+    Attention, as the reference dispatches it: a ring buffer and a
+    sliding window over a linear cache go to ``_masked_decode``; a linear
+    bf16/f32 cache goes to the decode kernel (``flash_decode_op``) on the
+    card, and on the CPU where ``cfg.interpret_kernels`` asks for it (its
+    plain version ``decode_ref``); every other case, the int8 cache
+    included (dequantized whole, as in the reference), to
+    ``_masked_decode``."""
+    dt = cfg.compute_dtype_
+    _, intmax = _mode(cfg)
+    q = proj_heads(x1, params["wq"].to(dt))              # (B, H, Dh)
+    k = proj_heads(x1, params["wk"].to(dt))
+    v = proj_heads(x1, params["wv"].to(dt))
+    if cfg.qk_norm:
+        q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
+    if cfg.rope_theta > 0:                               # next position
+        cos, sin = rope_cs if rope_cs is not None else rope_cos_sin(
+            cache_len[:, None, None], cfg.rope_theta, cfg.head_dim_ // 2)
+        q = apply_rope(q[:, :, None, :], cos, sin)[:, :, 0]
+        k = apply_rope(k[:, :, None, :], cos, sin)[:, :, 0]
+
+    int8_kv = cache_k_scale is not None
+    if int8_kv:
+        k, k_sc = quantize_kv(k)             # (B, Hkv, Dh), (B, Hkv)
+        v, v_sc = quantize_kv(v)
+
+    S = cache_k.shape[2]
+    if cfg.opt_dus_cache:
+        pos = cache_len[:1].long()
+        pos = pos % S if ring else torch.clamp(pos, max=S - 1)
+        cache_k.index_copy_(2, pos, k[:, :, None].to(cache_k.dtype))
+        cache_v.index_copy_(2, pos, v[:, :, None].to(cache_v.dtype))
+        if int8_kv:
+            cache_k_scale.index_copy_(2, pos, k_sc[:, :, None])
+            cache_v_scale.index_copy_(2, pos, v_sc[:, :, None])
+    else:
+        rows = torch.arange(x1.shape[0], device=x1.device)
+        slot = cache_len.long() % S if ring else cache_len.long()
+        cache_k[rows, :, slot] = k.to(cache_k.dtype)
+        cache_v[rows, :, slot] = v.to(cache_v.dtype)
+        if int8_kv:
+            cache_k_scale[rows, :, slot] = k_sc
+            cache_v_scale[rows, :, slot] = v_sc
+    new_len = cache_len + 1
+
+    if int8_kv:
+        att_k = dequantize_kv(cache_k, cache_k_scale, dt)
+        att_v = dequantize_kv(cache_v, cache_v_scale, dt)
+    else:
+        att_k, att_v = cache_k, cache_v
+
+    q = q_scale(q, cfg)
+    kj = torch.arange(S, device=x1.device)[None, :]   # cache slots
+    if ring:
+        # every written slot is live; the buffer size IS the window
+        live = kj < torch.clamp(new_len, max=S)[:, None]
+        o = _masked_decode(q, att_k, att_v, live, intmax)
+    elif 0 < window < S:
+        # sliding window over a linear cache
+        start = torch.clamp(new_len - window, min=0)
+        live = (kj >= start[:, None]) & (kj < new_len[:, None])
+        o = _masked_decode(q, att_k, att_v, live, intmax)
+    elif (q.is_cuda or cfg.interpret_kernels) and not int8_kv:
+        o = flash_decode_op(q, att_k, att_v, new_len, intmax=intmax)
+    else:
+        live = kj < new_len[:, None]
+        o = _masked_decode(q, att_k, att_v, live, intmax)
+
+    wo = params["wo"].to(dt)
+    y1 = o.flatten(1) @ wo.reshape(-1, wo.shape[-1])
+    if int8_kv:
+        return y1, cache_k, cache_v, cache_k_scale, cache_v_scale
+    return y1, cache_k, cache_v
+
+
+def _masked_decode(q, cache_k, cache_v, live, intmax):
+    """Plain decode attention: q (B, Hq, D) pre-scaled, cache (B, Hkv, S,
+    D), live (B, S). Scores and the A·V sum in fp32; p is cast to the
+    cache's dtype before A·V, and the output is in that dtype (as in the
+    reference)."""
+    B, Hq, D = q.shape
+    _, Hkv, S, _ = cache_k.shape
+    qg = q.reshape(B, Hkv, Hq // Hkv, D).float()
+    s = qg @ cache_k.float().transpose(-1, -2)           # (B, Hkv, G, S)
+    s = torch.where(live[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    m = torch.amax(torch.ceil(s) if intmax else s, dim=-1, keepdim=True)
+    p = torch.exp2(s - m)
+    d = torch.sum(p, dim=-1, keepdim=True)
+    pos = d > 0
+    p = torch.where(pos, p / torch.where(pos, d, torch.ones_like(d)),
+                    torch.zeros_like(p))
+    o = p.to(cache_v.dtype).float() @ cache_v.float()
+    return o.reshape(B, Hq, D).to(cache_v.dtype)

@@ -83,14 +83,22 @@ def init_lm_params(cfg: ModelConfig, generator: torch.Generator):
 
 
 def model_fns(cfg: ModelConfig) -> SimpleNamespace:
-    """The dense family's training interface, as in the JAX registry:
-    ``schema``, ``init(generator)`` (parameters on ``generator.device``) and
-    ``loss(params, batch)``. The loss keeps ``lm_loss``'s own z-loss
-    weight, as the reference's registry does."""
+    """The dense family's uniform interface, as in the JAX registry:
+    ``schema``, ``init(generator)`` (parameters on ``generator.device``),
+    ``loss(params, batch)`` (``lm_loss``'s own z-loss weight, as the
+    reference's registry keeps it), and the static engine's
+    ``prefill(params, batch, max_len)``, ``decode_step(params, tokens1,
+    cache)`` and ``cache_spec(batch, max_len)``."""
     schema = lm_schema(cfg)
     return SimpleNamespace(
         schema=schema,
         init=lambda generator: init_params(schema, generator,
                                            cfg.param_dtype_),
         loss=lambda p, batch: lm_mod.lm_loss(p, batch, cfg),
+        prefill=lambda p, batch, max_len: lm_mod.lm_prefill(
+            p, batch["tokens"], cfg, max_len),
+        decode_step=lambda p, tok1, cache: lm_mod.lm_decode_step(
+            p, tok1, cache, cfg),
+        cache_spec=lambda batch, max_len: lm_mod.cache_spec(
+            cfg, batch, max_len),
     )

@@ -1,6 +1,13 @@
-"""Continuous batching over the paged KV pool (dense GQA LMs).
+"""Serving engines: static-slot batching over a contiguous KV cache, and
+continuous batching over the paged KV pool (dense GQA LMs).
 
-``ContinuousEngine`` is the JAX package's serving engine in PyTorch:
+``ServeEngine`` is the JAX package's static-slot engine in PyTorch: one
+prefill of the whole batch into a contiguous ``(B, max_len)`` cache
+(``models/lm.py::lm_prefill``), then one decode step for every row together
+(``lm_decode_step`` → ``kernels/flash_decode`` on the card) until each has
+``max_new`` tokens. Tokens stay on the device until the run ends.
+
+``ContinuousEngine`` is the JAX package's continuous-batching engine:
 per-request admission from a FIFO (``serve/scheduler.py``), KV in
 fixed-size physical blocks of a shared pool (``serve/kv_pool.py``), decode
 as ONE fused step over the whole running batch through per-request block
@@ -14,15 +21,16 @@ prompts prefill in fixed-size chunks through ``kernels/flash_prefill_paged``,
 interleaved with decode steps. ``kv_dtype="int8"`` stores K/V as int8 with
 per-row scales.
 
-The engine runs on the CUDA card unless ``device`` names another device;
-without a card the default raises. It casts the matrix weights to the
+Both engines run on the CUDA card unless ``device`` names another device;
+without a card the default raises. Both cast the matrix weights to the
 compute dtype once at load (the same numbers the per-use casts give).
 
-Greedy tokens stay on the device between steps: a request keeps its batch
-row from admission to eviction, vacated rows idle as zombies (length 0,
-garbage block 0), so step N's sampled (B,) vector is step N+1's input, and
-token values reach the host only at ``drain()``. Temperature sampling uses
-the base-2 softmax and the engine's ``torch.Generator``.
+In the continuous engine greedy tokens stay on the device between steps: a
+request keeps its batch row from admission to eviction, vacated rows idle
+as zombies (length 0, garbage block 0), so step N's sampled (B,) vector is
+step N+1's input, and token values reach the host only at ``drain()``.
+Temperature sampling uses the base-2 softmax and the engine's
+``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -35,7 +43,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.softermax import softmax_base2
-from repro_torch.models.lm import cast_matrix_params
+from repro_torch.models.lm import cast_matrix_params, maybe_cast_params
+from repro_torch.models.registry import model_fns
 from repro_torch.models.schema import tree_map, unstack_layers
 from repro_torch.serve.kv_pool import PagedKVCache, PoolStats
 from repro_torch.serve.paged_step import (check_paged_support,
@@ -58,6 +67,67 @@ def sample_tokens(lg: torch.Tensor, generator: torch.Generator,
         return torch.argmax(lg, dim=-1).to(torch.int32)
     p = softmax_base2(lg / temperature, fold_log2e=True)
     return torch.multinomial(p, 1, generator=generator)[:, 0].to(torch.int32)
+
+
+@dataclasses.dataclass
+class GenerateResult:
+    tokens: np.ndarray           # (B, max_new)
+    steps: int
+
+
+class ServeEngine:
+    """Static-slot batch engine (see module docstring)."""
+
+    def __init__(self, cfg: ModelConfig, params, max_len: int = 512,
+                 device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        params = tree_map(lambda a: a.to(self.device), params)
+        if cfg.opt_bf16_params:
+            # the reference's rule: leaves of rank >= 2 of the stacked tree
+            # (block norm scales included) cast once at load
+            params = unstack_layers(maybe_cast_params(params, cfg),
+                                    cfg.n_layers)
+        else:
+            # the per-use casts of the matrices, done once: per layer, so
+            # norm scales stay as they are
+            params = unstack_layers(params, cfg.n_layers)
+            dt = cfg.compute_dtype_
+            params = {**cast_matrix_params(
+                {k: v for k, v in params.items() if k != "blocks"}, dt),
+                "blocks": [cast_matrix_params(bp, dt)
+                           for bp in params["blocks"]]}
+        self.params = params
+        self.max_len = max_len
+        self.fns = model_fns(cfg)
+
+    def _prefill(self, tokens: torch.Tensor):
+        return self.fns.prefill(self.params, {"tokens": tokens},
+                                self.max_len)
+
+    def _decode(self, tokens1: torch.Tensor, cache):
+        return self.fns.decode_step(self.params, tokens1, cache)
+
+    def _sample(self, lg: torch.Tensor, generator: torch.Generator,
+                temperature: float) -> torch.Tensor:
+        return sample_tokens(lg, generator, temperature, self.cfg)
+
+    def generate(self, prompts: np.ndarray, max_new: int,
+                 temperature: float = 0.0, seed: int = 0) -> GenerateResult:
+        """prompts: (B, S) int32 full-length prompts. Temperature sampling
+        draws from one ``torch.Generator`` seeded with ``seed`` (the
+        reference splits a JAX key per step)."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        tokens = torch.as_tensor(np.asarray(prompts, np.int32),
+                                 device=self.device)
+        lg, cache = self._prefill(tokens)
+        tok = self._sample(lg, gen, temperature)
+        out = [tok]
+        for _ in range(max_new - 1):
+            lg, cache = self._decode(tok, cache)
+            tok = self._sample(lg, gen, temperature)
+            out.append(tok)
+        return GenerateResult(torch.stack(out, 1).cpu().numpy(), max_new)
 
 
 @dataclasses.dataclass

@@ -9,9 +9,10 @@ not need).
 Tolerances: float32 outputs within 1e-5 of the plain version (the kernel
 sums in another order, every rescale is exact). The paged kernels'
 bfloat16 outputs within 2e-2 (one bf16 rounding of values of order 1). The
-flash kernels' bfloat16 outputs and gradients are held element by element
-to their own size (``repro_torch.kernels.parity``, as ``chip_smoke.py``
-holds them), and their fp32 row statistics to 1e-5 in every dtype.
+flash kernels' and the contiguous decode kernel's (K5) bfloat16 outputs
+and gradients are held element by element to their own size
+(``repro_torch.kernels.parity``, as ``chip_smoke.py`` holds them), and the
+flash kernels' fp32 row statistics to 1e-5 in every dtype.
 """
 import numpy as np
 import pytest
@@ -20,6 +21,7 @@ import torch
 from repro_torch.kernels.flash_attention import (
     flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
     flash_attention_op, flash_attention_plain)
+from repro_torch.kernels.flash_decode import decode_ref, flash_decode
 from repro_torch.kernels.flash_decode_paged import (flash_decode_paged,
                                                     paged_decode_ref,
                                                     paged_decode_split_ref)
@@ -205,3 +207,75 @@ def test_engine_sampling_on_the_card(cuda_device):
         runs.append([r.tokens for _, r in sorted(eng.run().items())])
     assert runs[0] == runs[1]
     assert all(0 <= t < cfg.vocab_size for s in runs[0] for t in s)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("G", [1, 3, 4, 8])
+@pytest.mark.parametrize("S", [37, 1056])
+@pytest.mark.parametrize("Hkv", [1, 2, 8])
+@pytest.mark.parametrize("intmax", [True, False])
+def test_contiguous_decode_kernel_matches_plain(cuda_device, dtype, G, S,
+                                                Hkv, intmax):
+    """K5 against ``decode_ref``: lengths 1, the chunk (32) and pass (128)
+    boundaries +-1 and the whole cache; 1, 5 or 9 split lanes
+    (``split_lanes``) as the (sequence, KV head) pairs vary."""
+    rng = np.random.default_rng(G * S + Hkv)
+    D = 128
+    lens = [n for n in (1, 31, 32, 33, 127, 128, 129, S) if n <= S]
+    B = len(lens)
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+
+    def rand(*shp, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shp) * scale)
+                                .astype(np.float32)).to(cuda_device, dt)
+
+    q = rand(B, G * Hkv, D, scale=D ** -0.5)
+    k, v = rand(B, Hkv, S, D), rand(B, Hkv, S, D)
+    ln = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    got = flash_decode(q, k, v, ln, intmax=intmax)
+    torch.cuda.synchronize()
+    want = decode_ref(q, k, v, ln, intmax=intmax)
+    assert got.dtype == want.dtype == dt
+    assert parity_error(got, want)[1] <= tolerance(dt)
+
+
+def test_contiguous_decode_kernel_counts_and_empty_rows(cuda_device):
+    """One count per launch, none for the plain version; a row of length 0
+    is the merge identity, 0 (d == 0 -> 0)."""
+    k = torch.randn(2, 2, 40, 64, device=cuda_device)
+    v = torch.randn(2, 2, 40, 64, device=cuda_device)
+    q = torch.randn(2, 6, 64, device=cuda_device)
+    ln = torch.tensor([0, 40], dtype=torch.int32, device=cuda_device)
+    before = flash_decode.launches
+    out = flash_decode(q, k, v, ln)
+    decode_ref(q, k, v, ln)
+    assert flash_decode.launches == before + 1
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    assert parity_error(out[1], decode_ref(q, k, v, ln)[1])[1] <= F32_ATOL
+
+
+def test_static_engine_on_the_card(cuda_device):
+    """Reduced llama3.2-3b in float32: the static engine on the card (K5)
+    emits the greedy streams of the same engine on the CPU and of the
+    paged engine on the card, with n_layers K5 launches per decode step."""
+    from repro_torch.models.registry import (get_config, init_lm_params,
+                                             reduce_config)
+    from repro_torch.serve import ContinuousEngine, ServeEngine
+    cfg = reduce_config(get_config("llama3.2-3b"))
+    params = init_lm_params(cfg, torch.Generator().manual_seed(0))
+    prompts = np.random.default_rng(2).integers(
+        1, cfg.vocab_size, (3, 20)).astype(np.int32)
+    streams = {}
+    for d in ("cpu", cuda_device):
+        before = flash_decode.launches
+        res = ServeEngine(cfg, params, max_len=30, device=d).generate(
+            prompts, 10)
+        streams[str(d)] = res.tokens.tolist()
+        launched = flash_decode.launches - before
+        assert launched == (0 if d == "cpu" else cfg.n_layers * 9)
+    eng = ContinuousEngine(cfg, params, block_size=8, num_blocks=32,
+                           max_batch=4, max_len=32, device=cuda_device)
+    handles = [eng.submit(p, 10) for p in prompts]
+    res = eng.run()
+    assert streams["cpu"] == streams[str(cuda_device)] == \
+        [res[h.req_id].tokens for h in handles]

@@ -10,7 +10,7 @@ import torch
 
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
-from repro_torch.serve import ContinuousEngine
+from repro_torch.serve import ContinuousEngine, ServeEngine
 from repro_torch.utils.device import resolve_device
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -36,9 +36,13 @@ def test_no_jax_or_reference_imports(path):
 
 
 def test_entry_points_default_to_the_card():
-    assert inspect.signature(ContinuousEngine).parameters["device"] \
-        .default is None
+    for engine in (ContinuousEngine, ServeEngine):
+        assert inspect.signature(engine).parameters["device"] \
+            .default is None
     assert launch_serve.parse_args([]).device == "cuda"
+    assert launch_serve.parse_args([]).engine == "static"
+    for engine in ("static", "paged"):
+        assert launch_serve.parse_args(["--engine", engine]).device == "cuda"
     assert launch_train.parse_args([]).device == "cuda"
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"
