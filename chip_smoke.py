@@ -48,6 +48,39 @@ Phases, in order; any failure raises and exits non-zero:
    prefill), with a near-tie audit of the first greedy token that differs.
 14. K5's time at the full-width decode shape beside its bound, its plain
    version and scaled_dot_product_attention.
+15. (A) Softermax row kernel (K6) and fixed-point kernel (K7) parity: K6
+   against its plain version (float32 math) within ``kernels/parity.py``'s
+   rule, f32 and bf16, IntMax on and off; K7 EQUAL (``torch.equal``) to its
+   mirror ``softermax_quant_plain`` and within 2^-7 of ``softermax_fixed``;
+   masked and pad columns, rows whose max is <= -17, V off the 16-wide
+   slice, and both full-width shapes of phase 20.
+16. (B) Fixed-point parity at reduced size, float32: the static engine on
+   the card (K7 prefill, K5 decode) against the same engine on the CPU and
+   the paged engine on the card, a first differing token held to the
+   near-tie audit of phase 13; three Softermax-aware finetuning steps
+   (``softermax_fixed``, K7) of reduced bert-base on the card against the
+   CPU.
+17. (C) Full-width fixed-point serving of llama3.2-3b in bf16
+   (``softmax_impl="softermax_fixed"``: every one-shot prefill on the naive
+   path through K7): 8 prompts of 1024 tokens, 32 new tokens, through the
+   static and then the paged engine, with the near-tie audit between them;
+   prefill ms, tok/s, K7 launches (28 per prefill call) and a profile of
+   the prefill by kernel.
+18. (D) Full-width naive float path: the same prompts through the static
+   engine with ``attention_impl="naive"``, ``softmax_impl="softermax"`` (K6,
+   28 launches per prefill), audited against ``attention_impl="flash"``
+   (K3), which computes the same function.
+19. (E) Full-width Softermax-aware finetuning of bert-base (12 layers, d
+   768, seq 512, batch 16, fp32 master weights, bf16 compute, remat
+   "full"): the Table III workflow at 10 pretrain and 5 finetune steps per
+   variant, every eval loss finite; ms per ``softermax_fixed`` and per
+   ``softmax`` step, K7 launches per step, peak memory.
+20. (F) K6 and K7 times at the full-width prefill shape (rows 8 x 24 x
+   1024, V 1024, f32) and the bert shape (rows 16 x 12 x 512, V 512) beside
+   their byte bound, their plain versions and, for K6, ``torch.softmax``
+   of the scores already scaled by ln 2 as the library yardstick (the
+   factor folds into q in use, so it is not timed; no PyTorch call
+   computes K7's function).
 
 Phase 4 also runs one engine with ``attention_impl="flash"``, whose one-shot
 prefill goes through K3.
@@ -191,17 +224,29 @@ def _reset_counts():
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.flash_decode_paged import flash_decode_paged
     from repro_torch.kernels.flash_prefill_paged import flash_prefill_paged
+    from repro_torch.kernels.softermax import softermax_rows
+    from repro_torch.kernels.softermax_quant import softermax_quant_rows
     flash_decode_paged.launches = 0
     flash_prefill_paged.launches = 0
     flash_attention.launches = 0
     flash_attention_bwd.launches = 0
     flash_decode.launches = 0
+    softermax_rows.launches = 0
+    softermax_quant_rows.launches = 0
 
 
 def _all_counts():
-    """(K1, K2, K3, K4, K5) launch counts."""
+    """(K1, K2, K3, K4, K5, K6, K7) launch counts."""
     from repro_torch.kernels.flash_decode import flash_decode
-    return (*_counts(), *_flash_counts(), flash_decode.launches)
+    return (*_counts(), *_flash_counts(), flash_decode.launches,
+            *_softermax_counts())
+
+
+def _softermax_counts():
+    """(K6, K7) launch counts."""
+    from repro_torch.kernels.softermax import softermax_rows
+    from repro_torch.kernels.softermax_quant import softermax_quant_rows
+    return softermax_rows.launches, softermax_quant_rows.launches
 
 
 def _flash_counts():
@@ -891,9 +936,9 @@ def phase_static_parity(dev):
             counts = _all_counts()
             streams[str(d)] = res.tokens.tolist()
             want = (0, 0, 0, 0, c.n_layers * (max_new - 1)
-                    if d != "cpu" and kv == "f32" else 0)
+                    if d != "cpu" and kv == "f32" else 0, 0, 0)
             check(counts == want, f"static {kv} on {d}: launches "
-                                  f"K1-K5 {counts} != {want}")
+                                  f"K1-K7 {counts} != {want}")
         check(streams["cpu"] == streams[str(dev)],
               f"static {kv}: card and CPU greedy streams differ: {streams}")
         if kv == "f32":
@@ -1039,8 +1084,8 @@ def phase_static_full_width(dev):
         wall = time.perf_counter() - t0
         counts = _all_counts()
         rec.close()
-        want = (0, 0, 0, 0, L * (max_new - 1) if kv == "bf16" else 0)
-        check(counts == want, f"static {kv}: launches K1-K5 {counts} != "
+        want = (0, 0, 0, 0, L * (max_new - 1) if kv == "bf16" else 0, 0, 0)
+        check(counts == want, f"static {kv}: launches K1-K7 {counts} != "
                               f"{want}")
         check(res.tokens.shape == (B, max_new) and
               ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all(),
@@ -1135,6 +1180,472 @@ def phase_decode_times(dev, launches, n_layers):
                  4 * B * Hq * S * D, lib)]
 
 
+def _score_rows(shape, seed, scale, dev):
+    """Scores (rows, V) with a fully masked row, a half-masked row, a row
+    whose max is <= -17 and a row masked up front: masked and pad entries
+    enter the fixed-point PowSum."""
+    import numpy as np
+    import torch
+    x = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    x *= scale
+    if shape[0] > 3:
+        x[0] = -1e9
+        x[1, shape[1] // 2:] = -1e9
+        x[2] -= 30.0
+        x[3, :shape[1] // 3] = -1e9
+    return torch.from_numpy(x).to(dev)
+
+
+# K6 / K7 row shapes: the CPU tests', V off the 16-wide slice, and the two
+# full-width shapes (llama3.2-3b prefill: 8 x 24 x 1024 rows of 1024;
+# bert-base at seq 512, batch 16: 16 x 12 x 512 rows of 512)
+PREFILL_ROWS = (8 * 24 * 1024, 1024)
+BERT_ROWS = (16 * 12 * 512, 512)
+
+
+def phase_softermax_parity(dev):
+    """K6 and K7 against their plain versions on the card."""
+    import torch
+    from repro_torch.kernels.parity import parity_error, tolerance
+    from repro_torch.kernels.softermax import softermax_rows, \
+        softermax_rows_ref
+    from repro_torch.kernels.softermax_quant import (softermax_quant_plain,
+                                                     softermax_quant_ref,
+                                                     softermax_quant_rows)
+    saved = _softermax_counts()
+    shapes = [(4, 128), (8, 1024), (5, 300), (16, 64), (21, 130), (8, 37),
+              (2, 16), (12, 200), (3, 1), PREFILL_ROWS, BERT_ROWS]
+    worst6, worst7, n7 = {}, 0.0, 0
+    for shape in shapes:
+        x = _score_rows(shape, sum(shape), 4.0, dev)
+        for dtn in ("float32", "bfloat16"):
+            dt = getattr(torch, dtn)
+            xd = x.to(dt)
+            for intmax in (True, False):
+                got = softermax_rows(xd, intmax=intmax)
+                torch.cuda.synchronize()
+                want = softermax_rows_ref(xd.float(), intmax).to(dt)
+                err, held = parity_error(got, want)
+                check(held <= tolerance(dt) and
+                      bool(torch.isfinite(got).all()),
+                      f"K6 {shape} {dtn} intmax={intmax}: max |err| {err}, "
+                      f"held {held}")
+                w = worst6.get(dtn, (0.0, 0.0))
+                worst6[dtn] = (max(w[0], err), max(w[1], held))
+                del got, want
+            got = softermax_quant_rows(xd)
+            torch.cuda.synchronize()
+            check(bool(torch.equal(got, softermax_quant_plain(xd))),
+                  f"K7 {shape} {dtn}: differs from softermax_quant_plain")
+            ref_err = (got.float() - softermax_quant_ref(xd.float())) \
+                .abs().max().item()
+            check(ref_err <= 2 ** -7, f"K7 {shape} {dtn}: {ref_err} from "
+                                      "softermax_fixed")
+            worst7 = max(worst7, ref_err)
+            n7 += 1
+            del got, xd
+        del x
+        torch.cuda.empty_cache()
+    _set_softermax_counts(saved)       # comparison launches do not count
+    for dtn, (err, held) in sorted(worst6.items()):
+        print(f"[15] K6 vs plain, {dtn}: max |err| {err:.3g}, checked error "
+              f"{held:.3g} <= {tolerance(getattr(torch, dtn))} "
+              f"({2 * len(shapes)} cases)")
+    print(f"[15] K7 == softermax_quant_plain in all {n7} cases (f32, bf16; "
+          f"up to {PREFILL_ROWS[0]} x {PREFILL_ROWS[1]}); max |K7 - "
+          f"softermax_fixed| {worst7:.3g} <= 2^-7")
+
+
+def _set_softermax_counts(counts):
+    from repro_torch.kernels.softermax import softermax_rows
+    from repro_torch.kernels.softermax_quant import softermax_quant_rows
+    softermax_rows.launches, softermax_quant_rows.launches = counts
+
+
+def _logit_list_audit(a_tokens, b_tokens, a_logits, b_logits, vocab):
+    """The near-tie audit of two static engines' runs (token arrays and the
+    per-step logits of each)."""
+    B, T = a_tokens.shape
+    p_logits = {(b, t): b_logits[t][b] for b in range(B) for t in range(T)}
+    return _near_tie_audit(a_tokens, [r.tolist() for r in b_tokens],
+                           a_logits, p_logits, vocab)
+
+
+def phase_fixed_reduced(dev):
+    """Reduced llama3.2-3b, float32, softermax_fixed: the static engine on
+    the card against the CPU's and the paged engine's; then three QAT steps
+    of reduced bert-base on the card against the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.registry import (get_config, init_lm_params,
+                                             reduce_config)
+    from repro_torch.models.schema import tree_leaves, tree_map
+    from repro_torch.serve import ServeEngine
+    cfg = reduce_config(get_config("llama3.2-3b")).replace(
+        softmax_impl="softermax_fixed")
+    params = init_lm_params(cfg, torch.Generator().manual_seed(0))
+    prompts = np.random.default_rng(2).integers(
+        1, cfg.vocab_size, (4, 20)).astype(np.int32)
+    max_new = 10
+    runs = {}
+    for d in ("cpu", dev):
+        eng = ServeEngine(cfg, params, max_len=30, device=d)
+        rec = _StaticRecorder(eng)
+        _reset_counts()
+        res = eng.generate(prompts, max_new)
+        counts = _all_counts()
+        rec.close()
+        want = (0, 0, 0, 0, 0, 0, 0) if d == "cpu" else \
+            (0, 0, 0, 0, cfg.n_layers * (max_new - 1), 0, cfg.n_layers)
+        check(counts == want, f"fixed-point static on {d}: launches K1-K7 "
+                              f"{counts} != {want}")
+        runs[str(d)] = (res.tokens, [lg.cpu() for lg in rec.logits])
+    (ct, cl), (gt, gl) = runs["cpu"], runs[str(dev)]
+    share, lines = _logit_list_audit(gt, ct, gl, cl, cfg.vocab_size)
+    paged, p_logits, k7 = _paged_run(cfg, params, prompts, max_new, dev,
+                                     block_size=8, num_blocks=40)
+    check(k7 == cfg.n_layers * len(prompts),
+          f"paged fixed-point: K7 launches {k7} != {cfg.n_layers} x "
+          f"{len(prompts)} one-shot prefills")
+    p_share, p_lines = _near_tie_audit(gt, paged, gl, p_logits,
+                                       cfg.vocab_size)
+    print(f"[16] reduced llama3.2-3b f32 softermax_fixed: card vs cpu static "
+          f"engine {share:.3f} of greedy tokens equal, card static vs card "
+          f"paged {p_share:.3f}; K7 launches {cfg.n_layers} per static "
+          f"prefill, {k7} over {len(prompts)} paged prefills")
+    for line in lines:
+        print("[16] near-tie audit (card vs cpu): " + line)
+    for line in p_lines:
+        print("[16] near-tie audit (static vs paged): " + line)
+
+    # three Softermax-aware finetuning steps of reduced bert-base
+    bcfg = reduce_config(get_config("bert-base")).replace(
+        causal=True, softmax_impl="softermax_fixed")
+    init = init_lm_params(bcfg, torch.Generator().manual_seed(0))
+    tc = TrainConfig(total_steps=3, warmup_steps=1, learning_rate=1e-4)
+    out = {}
+    for d in ("cpu", dev):
+        _reset_counts()
+        p = tree_map(lambda a: a.to(d, copy=True), init)
+        data = SyntheticLMData(bcfg.vocab_size, 64, 16, seed=0)
+        out[str(d)] = _train_run(bcfg, p, tc, 3, data), _softermax_counts()
+    ((cp, crows), c_counts), ((gp, grows), g_counts) = \
+        out["cpu"], out[str(dev)]
+    check(c_counts == (0, 0) and g_counts == (0, 3 * bcfg.n_layers),
+          f"bert QAT: K6/K7 launches cpu {c_counts} card {g_counts}")
+    # The card's forward is K7, the CPU's softermax_fixed: they differ by
+    # one Q(1,7) step where the running-max quantization ties
+    # (kernels/softermax_quant/ref.py), and the STE gradient follows the
+    # forward. On the CPU alone, swapping softermax_fixed's forward for
+    # K7's mirror moves this run's losses and grad norms within the bounds
+    # below (tests/test_torch_naive.py::test_qat_with_the_kernels_forward):
+    # losses within 1e-3 at every step, the grad norm within 1e-3 at step 0
+    # (same weights) and 2e-2 after, every parameter leaf within 1e-3 in
+    # relative L2.
+    rels = {}
+    for s, (c, g) in enumerate(zip(crows, grows)):
+        for key in ("loss", "ce", "grad_norm"):
+            rel = abs(g[0][key] - c[0][key]) / abs(c[0][key])
+            tol = 2e-2 if key == "grad_norm" and s > 0 else 1e-3
+            rels[f"{key}[{s}]"] = rel
+            check(rel <= tol, f"bert QAT step {s} {key}: card {g[0][key]}"
+                              f" cpu {c[0][key]} (rel {rel} > {tol})")
+    worst = max((torch.linalg.vector_norm(g.cpu() - c) /
+                 torch.linalg.vector_norm(c)).item()
+                for c, g in zip(tree_leaves(cp), tree_leaves(gp)))
+    check(worst <= 1e-3, f"bert QAT: parameters differ by {worst}")
+    print(f"[16] reduced bert-base softermax_fixed QAT, 3 steps: card vs cpu "
+          f"relative differences " +
+          ", ".join(f"{k} {v:.3g}" for k, v in rels.items()) +
+          f" (losses {[round(r[0]['loss'], 5) for r in grows]}, grad norms "
+          f"card {[round(r[0]['grad_norm'], 4) for r in grows]} cpu "
+          f"{[round(r[0]['grad_norm'], 4) for r in crows]}), worst "
+          f"parameter leaf rel L2 {worst:.3g} <= 1e-3, K7 launches "
+          f"{g_counts[1]} ({bcfg.n_layers} per step)")
+
+
+def _paged_run(cfg, params, prompts, max_new, dev, **kw):
+    """The prompts through the paged engine (one-shot prefill): greedy
+    streams, the logits behind each token by (prompt index, step), and the
+    K7 launches of the run."""
+    from repro_torch.serve import ContinuousEngine
+    B = len(prompts)
+    max_len = len(prompts[0]) + max_new
+    kw.setdefault("block_size", 16)
+    kw.setdefault("num_blocks", B * (max_len // kw["block_size"] + 1) + 1)
+    eng = ContinuousEngine(cfg, params, max_batch=B, max_len=max_len,
+                           device=dev, **kw)
+    rec = _paged_logits(eng)
+    _reset_counts()
+    handles = [eng.submit(p, max_new) for p in prompts]
+    res = eng.run()
+    k7 = _softermax_counts()[1]
+    paged = [res[h.req_id].tokens for h in handles]
+    logits = {(i, t): rec[h.req_id, t].cpu() for i, h in enumerate(handles)
+              for t in range(max_new)}
+    return paged, logits, k7
+
+
+def _full_width_llama(dev):
+    """llama3.2-3b in bf16 with weights from torch.Generator("cuda") seed 0,
+    the attention projections at their true fan-in (``_true_fan_in``: the
+    reference's init would put every score past Q(6,2)'s range), and the
+    prompts of phase 13."""
+    import numpy as np
+    import torch
+    from repro_torch.models.lm import cast_matrix_params
+    from repro_torch.models.registry import get_config, init_lm_params
+    cfg = get_config("llama3.2-3b")
+    params = cast_matrix_params(_true_fan_in(
+        init_lm_params(cfg, torch.Generator(device=dev).manual_seed(0))),
+        cfg.compute_dtype_)
+    prompts = np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (8, 1024)).astype(np.int32)
+    return cfg, params, prompts
+
+
+def _static_run(cfg, params, prompts, max_new, dev, label, tag):
+    """The prompts through the static engine: tokens, per-step logits (on
+    the host) and the K1-K7 launches; prints a profile of one more prefill
+    by kernel."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import ServeEngine
+    B, P = prompts.shape
+    eng = ServeEngine(cfg, params, max_len=P + max_new, device=dev)
+    rec = _StaticRecorder(eng)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = eng.generate(prompts, max_new)
+    wall = time.perf_counter() - t0
+    counts = _all_counts()
+    rec.close()
+    check(res.tokens.shape == (B, max_new) and
+          ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all(),
+          f"{label}: tokens {res.tokens}")
+    check(all(torch.isfinite(lg).all().item() for lg in rec.logits),
+          f"{label}: non-finite logits")
+    print(f"[{tag}] {label}: {B} requests x {max_new} tokens, "
+          f"{B * max_new / wall:.1f} tok/s ({wall:.2f}s incl. prefill "
+          f"{rec.prefill_ms:.1f} ms), {np.mean(rec.decode_ms):.2f} ms per "
+          f"decode step, launches K1-K7 {counts}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    tokens = torch.as_tensor(prompts, device=dev)
+    print(f"[{tag}] {label} " + step_profile(lambda: eng._prefill(tokens), 1,
+                                              "prefill"))
+    del eng
+    torch.cuda.empty_cache()
+    return res.tokens, [lg.cpu() for lg in rec.logits], counts
+
+
+def phase_fixed_full_width(dev):
+    """Full-width llama3.2-3b, bf16, softermax_fixed: the static engine
+    (K7 prefill, K5 decode), then the paged engine (one-shot prefills
+    through K7, K1 decode), with the near-tie audit between them. Returns
+    the static run's K7 launches."""
+    import torch
+    cfg, params, prompts = _full_width_llama(dev)
+    cfg = cfg.replace(softmax_impl="softermax_fixed")
+    L, max_new = cfg.n_layers, 32
+    tokens, s_logits, counts = _static_run(
+        cfg, params, prompts, max_new, dev, "static softermax_fixed", 17)
+    check(counts == (0, 0, 0, 0, L * (max_new - 1), 0, L),
+          f"static softermax_fixed: launches K1-K7 {counts}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    paged, p_logits, k7 = _paged_run(cfg, params, prompts, max_new, dev)
+    wall = time.perf_counter() - t0
+    check(k7 == L * len(prompts), f"paged softermax_fixed: K7 launches {k7} "
+                                  f"!= {L} x {len(prompts)} prefills")
+    share, lines = _near_tie_audit(tokens, paged, s_logits, p_logits,
+                                   cfg.vocab_size)
+    n_equal = sum(tokens[b].tolist() == paged[b] for b in range(len(paged)))
+    print(f"[17] paged softermax_fixed: {len(paged)} requests x {max_new} "
+          f"tokens, {len(paged) * max_new / wall:.1f} tok/s, K7 launches "
+          f"{k7} ({L} per one-shot prefill), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    print(f"[17] static vs paged engine (softermax_fixed, bf16): {share:.3f} "
+          f"of greedy tokens equal, {n_equal}/{len(paged)} streams equal")
+    for line in lines:
+        print("[17] near-tie audit: " + line)
+    del params, s_logits, p_logits
+    torch.cuda.empty_cache()
+    return counts[6]
+
+
+def phase_naive_full_width(dev):
+    """Full-width llama3.2-3b, bf16: the naive attention path with the float
+    Softermax (K6) against the flash path (K3), static engine. Returns the
+    naive run's K6 launches."""
+    import torch
+    cfg, params, prompts = _full_width_llama(dev)
+    L, max_new = cfg.n_layers, 32
+    naive = cfg.replace(attention_impl="naive", softmax_impl="softermax")
+    tokens, n_logits, counts = _static_run(
+        naive, params, prompts, max_new, dev, "static naive softermax", 18)
+    check(counts == (0, 0, 0, 0, L * (max_new - 1), L, 0),
+          f"static naive: launches K1-K7 {counts}")
+    flash = cfg.replace(attention_impl="flash", softmax_impl="softermax")
+    f_tokens, f_logits, f_counts = _static_run(
+        flash, params, prompts, max_new, dev, "static flash softermax", 18)
+    check(f_counts == (0, 0, L, 0, L * (max_new - 1), 0, 0),
+          f"static flash: launches K1-K7 {f_counts}")
+    share, lines = _logit_list_audit(tokens, f_tokens, n_logits, f_logits,
+                                     cfg.vocab_size)
+    print(f"[18] naive (K6) vs flash (K3) static engine, bf16: {share:.3f} "
+          f"of greedy tokens equal")
+    for line in lines:
+        print("[18] near-tie audit: " + line)
+    del params, n_logits, f_logits
+    torch.cuda.empty_cache()
+    return counts[5]
+
+
+def phase_bert_finetune(dev):
+    """Full-width bert-base: the Table III workflow at seq 512, batch 16,
+    then timed steps of the softermax_fixed and the softmax variant."""
+    import numpy as np
+    import torch
+    from repro_torch.benchmarks.table3_accuracy import (finetune_variants,
+                                                        report)
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.registry import get_config, model_fns
+    from repro_torch.models.schema import tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+    seq, batch = 512, 16
+    base = get_config("bert-base").replace(causal=True,
+                                           softmax_impl="softmax")
+    torch.cuda.empty_cache()
+    init = _true_fan_in(model_fns(base).init(
+        torch.Generator(device=dev).manual_seed(0)))
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = finetune_variants(base, init, pretrain_steps=10, finetune_steps=5,
+                            seq=seq, batch=batch)
+    wall = time.perf_counter() - t0
+    counts = _all_counts()
+    check(all(np.isfinite(v) for v in res.values()),
+          f"bert-base Table III: losses {res}")
+    check(counts[5] == 0 and counts[6] > 0,
+          f"bert-base Table III: launches K1-K7 {counts}")
+    print(f"[19] bert-base Table III workflow (seq {seq}, batch {batch}, 10 "
+          f"pretrain + 3 x 5 finetune steps, 5 evals) in {wall:.1f}s, peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+          f"launches K1-K7 {counts}")
+    for line in report(res).splitlines():
+        if line.strip():
+            print("[19] " + line)
+
+    # ms per step of each variant, from the same weights
+    per_step = {}
+    for impl in ("softermax_fixed", "softmax"):
+        cfg = base.replace(softmax_impl=impl)
+        tc = TrainConfig(total_steps=4, warmup_steps=1, learning_rate=1e-4)
+        step = make_train_step(model_fns(cfg).loss, tc)
+        params = tree_map(lambda a: a.clone(), init)
+        opt = adamw.init_state(params)
+        data = SyntheticLMData(cfg.vocab_size, seq, batch, seed=3)
+        torch.cuda.reset_peak_memory_stats()
+        ms, k7 = [], []
+        for _ in range(4):
+            b = next(data)
+            c0 = _softermax_counts()[1]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            k7.append(_softermax_counts()[1] - c0)
+            check(np.isfinite(float(m["loss"])), f"{impl} step: {m}")
+        per_step[impl] = (ms, k7, torch.cuda.max_memory_allocated())
+        print(f"[19] bert-base {impl} step: {np.mean(ms[1:]):.1f} ms (steps "
+              f"1-3; step 0 {ms[0]:.1f} ms), K7 launches per step {k7[1:]}, "
+              f"peak memory {per_step[impl][2] / 2 ** 30:.2f} GiB")
+        if impl == "softermax_fixed":
+            state = [params, opt]
+            b = next(data)
+
+            def profiled():
+                state[0], state[1], _ = step(state[0], state[1], b)
+
+            print("[19] softermax_fixed " + step_profile(profiled, 1,
+                                                         "training step"))
+        del params, opt
+        torch.cuda.empty_cache()
+    k7 = per_step["softermax_fixed"][1]
+    L = base.n_layers
+    want = (2 if base.remat == "full" else 1) * L
+    check(all(n == want for n in k7), f"softermax_fixed step: K7 launches "
+                                      f"{k7} != {want} per step")
+    check(all(n == 0 for n in per_step["softmax"][1]),
+          "softmax step launched K7")
+    del init
+    torch.cuda.empty_cache()
+
+
+def phase_softermax_times(dev, k6_launches, k7_launches, n_layers):
+    """K6 and K7 at the full-width prefill shape and the bert shape, f32."""
+    import torch
+    from repro_torch.kernels.parity import parity_error
+    from repro_torch.kernels.softermax import (softermax_rows,
+                                               softermax_rows_ref)
+    from repro_torch.kernels.softermax_quant import (softermax_quant_plain,
+                                                     softermax_quant_rows)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    saved = _softermax_counts()
+    rows = {}
+    for label, shape in (("prefill", PREFILL_ROWS), ("bert", BERT_ROWS)):
+        x = torch.randn(shape, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(4)) * 3
+        x[:, shape[1] // 2:][::2] = -1e9      # causal-like masked halves
+        nbytes = 2 * x.numel() * 4            # read once, written once
+        got = softermax_rows(x)
+        err6 = parity_error(got, softermax_rows_ref(x))[0]
+        ms6 = _time_ms(lambda: softermax_rows(x), flush)
+        plain6 = _time_ms(lambda: softermax_rows_ref(x), flush, iters=5)
+        # the library's row softmax on scores already in base 2 (the path
+        # folds ln 2 into q): the factor costs no pass of its own in use
+        xs = x * math.log(2)
+        lib6 = _time_ms(lambda: torch.softmax(xs, dim=-1), flush)
+        del xs
+        got = softermax_quant_rows(x)
+        err7 = (got - softermax_quant_plain(x)).abs().max().item()
+        check(err7 == 0.0, f"K7 {shape}: differs from its mirror by {err7}")
+        ms7 = _time_ms(lambda: softermax_quant_rows(x), flush)
+        plain7 = _time_ms(lambda: softermax_quant_plain(x), flush, iters=2)
+        rows[label] = (
+            _row("softermax_rows", "softermax.cu",
+                 "src/repro/kernels/softermax/softermax.py:81", k6_launches,
+                 n_layers, err6, ms6, plain6, nbytes, 5 * x.numel(), lib6),
+            _row("softermax_quant_rows", "softermax_quant.cu",
+                 "src/repro/kernels/softermax_quant/softermax_quant.py:67",
+                 k7_launches, n_layers, err7, ms7, plain7, nbytes,
+                 60 * x.numel()))
+        print(f"[20] {label} shape {shape}: K6 {ms6:.4f} ms (bound "
+              f"{rows[label][0]['bound_ms']:.4f}, plain {plain6:.4f}, "
+              f"torch.softmax {lib6:.4f}); K7 {ms7:.4f} ms (bound "
+              f"{rows[label][1]['bound_ms']:.4f}, plain {plain7:.4f}, no "
+              f"library call)")
+        del x, got
+        torch.cuda.empty_cache()
+    _set_softermax_counts(saved)          # timing launches do not count
+    out = []
+    for i in (0, 1):
+        row = dict(rows["prefill"][i])
+        bert = rows["bert"][i]
+        row["bert_shape"] = {k: bert[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err")}
+        out.append(row)
+    return out
+
+
 def _row(name, src, replaces, launches, per_step, err, ms, plain, nbytes,
          flops, library=None):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1195,6 +1706,14 @@ def main() -> int:
     print("[14] sm clock, power draw, temperature: " +
           card_line("clocks.sm,power.draw,temperature.gpu"))
     kernels += phase_decode_times(dev, k5_launches, n_layers)
+    phase_softermax_parity(dev)
+    phase_fixed_reduced(dev)
+    k7_launches = phase_fixed_full_width(dev)
+    k6_launches = phase_naive_full_width(dev)
+    phase_bert_finetune(dev)
+    print("[20] sm clock, power draw, temperature: " +
+          card_line("clocks.sm,power.draw,temperature.gpu"))
+    kernels += phase_softermax_times(dev, k6_launches, k7_launches, n_layers)
     for k in kernels:
         k["card"] = card
         lib = "" if k["library_ms"] is None else \

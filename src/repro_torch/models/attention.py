@@ -10,8 +10,12 @@ implementation by ``cfg.attention_impl``:
 * ``flash``   — the dense flash-attention kernels (K3 forward, K4 backward)
   through the trainable op ``flash_attention_op``; on CPU tensors their
   plain versions.
-* ``naive``   — the full score matrix through the fixed-point Softermax;
-  not ported yet, so it raises.
+* ``naive``   — the full fp32 score matrix through
+  ``core.softermax.attention_softmax``: on the card the row kernel K6
+  (``softermax``, ``base2``) or the fixed-point kernel K7
+  (``softermax_fixed``), on the CPU the plain functions. The only mode
+  supporting ``softermax_fixed``: that impl forces it (QAT finetuning, and
+  every one-shot prefill of a fixed-point model).
 
 ``attention_decode`` is the one-token step of the static engine over a
 contiguous ``(B, Hkv, S, Dh)`` cache (linear, sliding window, ring buffer,
@@ -32,6 +36,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.numerics import LOG2_E, NEG_INF
+from repro_torch.core.softermax import attention_softmax
 from repro_torch.kernels.flash_attention import flash_attention_op
 from repro_torch.kernels.flash_decode import flash_decode_op
 from repro_torch.models.layers import apply_rope, rmsnorm, rope, rope_cos_sin
@@ -166,6 +171,33 @@ def chunked_attention(
     return o.reshape(B, Hq, Sq, Dv).to(q.dtype)
 
 
+def _naive_attention(q, k, v, cfg: ModelConfig, *, causal: bool,
+                     window: int) -> torch.Tensor:
+    """The full score matrix: q (B, Hq, Sq, D) pre-scaled, k, v (B, Hkv,
+    Sk, D). Scores in fp32 (q and k upcast: the reference's
+    ``preferred_element_type=f32``), masked with the finite NEG_INF, the
+    softmax of ``cfg.softmax_impl`` over the keys, ``p`` cast to V's dtype
+    before A·V (exact for the fixed-point Q(1,7) grid)."""
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Sk, _ = k.shape
+    qg = q.reshape(B, Hkv, Hq // Hkv, Sq, D).float()
+    s = qg @ k[:, :, None].float().transpose(-1, -2)     # (B,Hkv,G,Sq,Sk)
+    dev = q.device
+    q_pos = torch.arange(Sq, device=dev)
+    k_pos = torch.arange(Sk, device=dev)
+    valid = None
+    if causal:
+        valid = q_pos[:, None] >= k_pos[None, :]
+    if window > 0:
+        w = q_pos[:, None] - k_pos[None, :] < window
+        valid = w if valid is None else valid & w
+    if valid is not None:
+        s = s.masked_fill(~valid, NEG_INF)
+    p = attention_softmax(s, impl=cfg.softmax_impl, axis=-1)
+    o = p.to(v.dtype) @ v[:, :, None]
+    return o.reshape(B, Hq, Sq, v.shape[-1]).to(q.dtype)
+
+
 def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor, causal: bool = True,
                     window: int = 0, return_kv: bool = False):
@@ -186,9 +218,7 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     elif impl == "flash":
         o = flash_attention_op(q, k, v, causal, intmax)
     elif impl == "naive":
-        raise NotImplementedError(
-            "attention_impl='naive' (and softmax_impl='softermax_fixed') "
-            "needs the fixed-point Softermax, which is not ported yet")
+        o = _naive_attention(q, k, v, cfg, causal=causal, window=window)
     else:
         raise ValueError(impl)
     y = _out_proj(params, o, cfg)

@@ -141,7 +141,7 @@ def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 def _check_dense_cache(cfg: ModelConfig) -> None:
     """The contiguous cache of the static engine is ported for the dense
     GQA family; the others come with their model modules (ROADMAP Queue
-    1: MoE item 1, the other families item 4)."""
+    1: MoE item 1, the other families item 3)."""
     if cfg.family == "moe":
         raise NotImplementedError(
             "family 'moe': the static engine needs moe_apply, not yet "
@@ -149,7 +149,7 @@ def _check_dense_cache(cfg: ModelConfig) -> None:
     if cfg.family != "dense" or cfg.mla is not None or cfg.ssm is not None:
         raise NotImplementedError(
             f"family {cfg.family!r}: only the dense GQA family's decode "
-            "cache is ported (ROADMAP Queue 1 item 4)")
+            "cache is ported (ROADMAP Queue 1 item 3)")
 
 
 def cache_spec(cfg: ModelConfig, batch: int, max_len: int):

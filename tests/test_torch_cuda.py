@@ -12,7 +12,11 @@ bfloat16 outputs within 2e-2 (one bf16 rounding of values of order 1). The
 flash kernels' and the contiguous decode kernel's (K5) bfloat16 outputs
 and gradients are held element by element to their own size
 (``repro_torch.kernels.parity``, as ``chip_smoke.py`` holds them), and the
-flash kernels' fp32 row statistics to 1e-5 in every dtype.
+flash kernels' fp32 row statistics to 1e-5 in every dtype. The Softermax
+row kernel (K6) is held by the same rule to its plain version computed in
+float32; the fixed-point kernel (K7) is held EXACTLY (``torch.equal``) to
+its mirror ``softermax_quant_plain`` and within one Q(1,7) step, 2^-7, of
+``softermax_fixed`` (``kernels/softermax_quant/ref.py``).
 """
 import numpy as np
 import pytest
@@ -28,6 +32,11 @@ from repro_torch.kernels.flash_decode_paged import (flash_decode_paged,
 from repro_torch.kernels.flash_prefill_paged import (flash_prefill_paged,
                                                      paged_prefill_ref)
 from repro_torch.kernels.parity import F32_ATOL, parity_error, tolerance
+from repro_torch.kernels.softermax import (softermax_op, softermax_rows,
+                                           softermax_rows_ref)
+from repro_torch.kernels.softermax_quant import (softermax_quant_plain,
+                                                 softermax_quant_ref,
+                                                 softermax_quant_rows)
 from repro_torch.models.attention import quantize_kv
 
 pytestmark = pytest.mark.cuda
@@ -273,6 +282,117 @@ def test_static_engine_on_the_card(cuda_device):
         streams[str(d)] = res.tokens.tolist()
         launched = flash_decode.launches - before
         assert launched == (0 if d == "cpu" else cfg.n_layers * 9)
+    eng = ContinuousEngine(cfg, params, block_size=8, num_blocks=32,
+                           max_batch=4, max_len=32, device=cuda_device)
+    handles = [eng.submit(p, 10) for p in prompts]
+    res = eng.run()
+    assert streams["cpu"] == streams[str(cuda_device)] == \
+        [res[h.req_id].tokens for h in handles]
+
+
+def _rows(shape, seed, scale):
+    """Scores with a fully masked row, a half-masked row, a row whose max
+    is <= -17 and a row masked up front (pad and masked entries enter the
+    fixed-point PowSum)."""
+    x = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    x *= scale
+    rows = x.reshape(-1, shape[-1])
+    rows[0] = -1e9
+    if rows.shape[0] > 3:
+        rows[1, shape[-1] // 2:] = -1e9
+        rows[2] -= 30.0
+        rows[3, :shape[-1] // 3] = -1e9
+    return torch.from_numpy(x)
+
+
+# the CPU tests' shapes, V off the 16-wide slice, and full-width rows (the
+# llama3.2-3b prefill's V 1024 and bert-base's 512)
+ROW_SHAPES = [(4, 128), (8, 1024), (5, 300), (16, 64), (3, 7, 130), (8, 37),
+              (2, 16), (12, 200), (3, 1), (2048, 1024), (1024, 512)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("intmax", [True, False])
+@pytest.mark.parametrize("shape", ROW_SHAPES, ids=str)
+def test_softermax_row_kernel_matches_plain(cuda_device, shape, intmax,
+                                            dtype):
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    x = _rows(shape, sum(shape), 4.0).to(cuda_device, dt)
+    got = softermax_rows(x.reshape(-1, shape[-1]), intmax=intmax)
+    torch.cuda.synchronize()
+    want = softermax_rows_ref(x.reshape(-1, shape[-1]).float(),
+                              intmax).to(dt)
+    assert got.dtype == dt and torch.isfinite(got).all()
+    assert parity_error(got, want)[1] <= tolerance(dt)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", ROW_SHAPES, ids=str)
+def test_fixed_point_kernel_equals_its_mirror(cuda_device, shape, dtype):
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    x = _rows(shape, sum(shape) + 1, 6.0).to(cuda_device, dt)
+    x2 = x.reshape(-1, shape[-1])
+    got = softermax_quant_rows(x2)
+    torch.cuda.synchronize()
+    assert got.dtype == dt
+    assert torch.equal(got, softermax_quant_plain(x2))
+    ref = softermax_quant_ref(x2.float())
+    assert (got.float() - ref).abs().max().item() <= 2 ** -7
+    assert torch.equal(got.float() * 128, torch.round(got.float() * 128))
+
+
+def test_softermax_kernels_count_launches_and_take_gradients(cuda_device):
+    """One count per launch (none for the plain versions); the dispatch of
+    attention_softmax; the trainable ops' gradients against the plain
+    functions' autograd (K6: closed form, 1e-5; K7: the same STE
+    vector-Jacobian product, recomputed)."""
+    from repro_torch.core.softermax import attention_softmax, softermax_fixed
+    x = _rows((2, 3, 6, 70), 5, 4.0).to(cuda_device)
+    g = torch.randn_like(x)
+    k6, k7 = softermax_rows.launches, softermax_quant_rows.launches
+    attention_softmax(x, "softermax")
+    attention_softmax(x, "base2", axis=2)
+    attention_softmax(x, "softermax_fixed")
+    attention_softmax(x, "softmax")
+    attention_softmax(x, "base2_folded")
+    softermax_rows_ref(x.reshape(-1, 70))
+    softermax_quant_plain(x)
+    assert (softermax_rows.launches - k6, softermax_quant_rows.launches - k7) \
+        == (2, 1)
+    for impl in ("softermax", "base2", "softermax_fixed"):
+        a = x.clone().requires_grad_()
+        attention_softmax(a, impl).backward(g)
+        b = x.cpu().requires_grad_()
+        if impl == "softermax_fixed":
+            softermax_fixed(b.reshape(-1, 70)).reshape(b.shape).backward(
+                g.cpu())
+        else:
+            softermax_op(b, intmax=impl == "softermax").backward(g.cpu())
+        assert (a.grad.cpu() - b.grad).abs().max().item() <= \
+            1e-5 * b.grad.abs().max().item()
+
+
+def test_fixed_point_engines_on_the_card(cuda_device):
+    """Reduced llama3.2-3b in float32 with softmax_impl="softermax_fixed":
+    the static engine on the card (K7 prefill, K5 decode) emits the greedy
+    streams of the same engine on the CPU and of the paged engine on the
+    card, with n_layers K7 launches per prefill."""
+    from repro_torch.models.registry import (get_config, init_lm_params,
+                                             reduce_config)
+    from repro_torch.serve import ContinuousEngine, ServeEngine
+    cfg = reduce_config(get_config("llama3.2-3b")).replace(
+        softmax_impl="softermax_fixed")
+    params = init_lm_params(cfg, torch.Generator().manual_seed(0))
+    prompts = np.random.default_rng(2).integers(
+        1, cfg.vocab_size, (3, 20)).astype(np.int32)
+    streams = {}
+    for d in ("cpu", cuda_device):
+        before = softermax_quant_rows.launches
+        res = ServeEngine(cfg, params, max_len=30, device=d).generate(
+            prompts, 10)
+        streams[str(d)] = res.tokens.tolist()
+        launched = softermax_quant_rows.launches - before
+        assert launched == (0 if d == "cpu" else cfg.n_layers)
     eng = ContinuousEngine(cfg, params, block_size=8, num_blocks=32,
                            max_batch=4, max_len=32, device=cuda_device)
     handles = [eng.submit(p, 10) for p in prompts]
