@@ -82,6 +82,29 @@ Phases, in order; any failure raises and exits non-zero:
    factor folds into q in use, so it is not timed; no PyTorch call
    computes K7's function).
 
+21. (G) Per-head paged decode kernel (K8) parity: K8 against its plain
+   version ``paged_decode_single_plain`` for f32, bf16 and int8 pools,
+   IntMax on and off, GQA groups 1, 3, 4, 8 and 12, blocks of 8 and 16,
+   lengths 0, 1, on block edges and odd, garbage table tails; the same at
+   the full-width llama3.2-3b geometry (Hq 24, Hkv 8, D 128, block 16);
+   and K8 against K1 on the same inputs at (tile, split) (1, 1) and (4, 2).
+22. (H) The ported ``decode_paged_bench`` (its measuring function, not its
+   gated CLI) at the reference's defaults and at the full-width geometry
+   (8 requests, Hq 24, Hkv 8, D 128, one 16,384-token request): per-head
+   (K8) and grouped (K1) tok/s, their ratio, the modeled gather-bytes
+   ratio; K8 and K1 launches of each run; each kernel's device time per
+   launch and its wrapper's host enqueue time per call.
+23. (I) Autotune at full width: the paged engine with phase 13's weights
+   and phase 5's prompts under ``autotune`` off, static and per-step,
+   greedy streams held equal or each first difference to the near-tie
+   audit, the planner's decisions; then a replay of ``autotune_bench``'s
+   full-width trajectory timing K1 at every candidate grid per sampled
+   step: on how many steps the modeled argmin is the measured fastest (a
+   reading, not a gate).
+24. (J) K8's time at the phase-22 full-width shape beside its byte bound
+   (K/V read once, as for K1) and its plain version; no PyTorch call
+   computes paged IntMax base-2 attention, so no library time.
+
 Phase 4 also runs one engine with ``attention_impl="flash"``, whose one-shot
 prefill goes through K3.
 
@@ -222,11 +245,13 @@ def _reset_counts():
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
     from repro_torch.kernels.flash_decode import flash_decode
-    from repro_torch.kernels.flash_decode_paged import flash_decode_paged
+    from repro_torch.kernels.flash_decode_paged import (
+        flash_decode_paged, flash_decode_paged_single)
     from repro_torch.kernels.flash_prefill_paged import flash_prefill_paged
     from repro_torch.kernels.softermax import softermax_rows
     from repro_torch.kernels.softermax_quant import softermax_quant_rows
     flash_decode_paged.launches = 0
+    flash_decode_paged_single.launches = 0
     flash_prefill_paged.launches = 0
     flash_attention.launches = 0
     flash_attention_bwd.launches = 0
@@ -1646,6 +1671,348 @@ def phase_softermax_times(dev, k6_launches, k7_launches, n_layers):
     return out
 
 
+def _paged_counts():
+    """(K1, K8) launch counts."""
+    from repro_torch.kernels.flash_decode_paged import (
+        flash_decode_paged, flash_decode_paged_single)
+    return flash_decode_paged.launches, flash_decode_paged_single.launches
+
+
+def _set_paged_counts(counts):
+    from repro_torch.kernels.flash_decode_paged import (
+        flash_decode_paged, flash_decode_paged_single)
+    flash_decode_paged.launches, flash_decode_paged_single.launches = counts
+
+
+def _single_case(rng, dev, B, Hq, Hkv, D, BS, W, lens, kv, qdt):
+    """Inputs of one K8 case: pools, a table whose entries past each row's
+    block cover are garbage (other rows' blocks), lengths and queries."""
+    import numpy as np
+    import torch
+    N = B * W + 1
+    kp, vp, ks, vs = _pools(rng, N, Hkv, BS, D, kv, dev)
+    bt = rng.permutation(np.arange(1, N)).reshape(B, W).astype(np.int32)
+    for b, ln in enumerate(lens):             # garbage past the cover
+        cover = -(-ln // BS)
+        bt[b, cover:] = rng.integers(0, N, W - cover)
+    q = _rand(rng, (B, Hq, D), D ** -0.5).to(dev, qdt)
+    return (q, kp, vp, torch.from_numpy(bt).to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev), ks, vs)
+
+
+def phase_single_parity(dev):
+    """K8 against its plain version and against K1, on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_decode_paged import (
+        flash_decode_paged, flash_decode_paged_single,
+        paged_decode_single_plain)
+    from repro_torch.kernels.parity import parity_error, tolerance
+    saved = _paged_counts()
+    rng = np.random.default_rng(21)
+    worst, n, n_k1 = {}, 0, 0
+    kinds = [("float32", torch.float32), ("bfloat16", torch.bfloat16),
+             ("int8", torch.float32), ("int8", torch.bfloat16)]
+    cases = [(kv, qdt, G, BS, 2, 128, 7)
+             for kv, qdt in kinds for G in (1, 3, 4, 8, 12) for BS in (8, 16)]
+    cases += [(kv, qdt, 3, 16, 8, 128, 128) for kv, qdt in kinds]
+    for kv, qdt, G, BS, Hkv, D, W in cases:
+        if W == 7:
+            lens = [0, 1, BS, 2 * BS + 5, 3 * BS, W * BS - 3]
+        else:                                 # the full-width geometry
+            lens = [0, 1, 16, 1023, 1024, 1025, 777, W * BS]
+        B = len(lens)
+        for intmax in (True, False):
+            q, kp, vp, bt, ln, ks, vs = _single_case(
+                rng, dev, B, G * Hkv, Hkv, D, BS, W, lens, kv, qdt)
+            got = flash_decode_paged_single(q, kp, vp, bt, ln, k_scale=ks,
+                                            v_scale=vs, intmax=intmax)
+            torch.cuda.synchronize()
+            want = paged_decode_single_plain(q, kp, vp, bt, ln, k_scale=ks,
+                                             v_scale=vs, intmax=intmax)
+            err, held = parity_error(got, want)
+            label = f"{kv}/q {str(qdt)[6:]}"
+            check(got.dtype == qdt and held <= tolerance(qdt),
+                  f"K8 {label} G={G} BS={BS} W={W} intmax={intmax}: max "
+                  f"|err| {err}, held {held}")
+            check(bool(torch.all(got[0] == 0)), "K8: a row of length 0 is "
+                                                "not 0")
+            w = worst.get(label, (0.0, 0.0))
+            worst[label] = (max(w[0], err), max(w[1], held))
+            n += 1
+            if G > 8:                         # K1 holds groups up to 8
+                continue
+            for T, S in ((1, 1), (4, 2)):
+                k1 = flash_decode_paged(q, kp, vp, bt, ln, k_scale=ks,
+                                        v_scale=vs, intmax=intmax,
+                                        kv_tile_blocks=T, split_k=S)
+                err1, held1 = parity_error(got, k1)
+                check(held1 <= tolerance(qdt) and
+                      bool(torch.all(k1[0] == 0)),
+                      f"K8 vs K1 {label} G={G} BS={BS} T={T} S={S}: max "
+                      f"|err| {err1}, held {held1}")
+                w = worst.get(label + " vs K1", (0.0, 0.0))
+                worst[label + " vs K1"] = (max(w[0], err1), max(w[1], held1))
+                n_k1 += 1
+    _set_paged_counts(saved)              # comparison launches do not count
+    for label, (err, held) in sorted(worst.items()):
+        print(f"[21] K8 {'' if 'K1' in label else 'vs plain '}{label}: max "
+              f"|err| {err:.3g}, checked error {held:.3g}")
+    print(f"[21] {n} K8 cases against its plain version, {n_k1} against K1 "
+          f"(tile, split) (1, 1) and (4, 2); tolerances: fp32 outputs "
+          f"{tolerance(torch.float32)} absolute, bf16 outputs "
+          f"{tolerance(torch.bfloat16)} of each element's size")
+
+
+# the benches' full-width geometry: llama3.2-3b's heads, one 16,384-token
+# request and seven of up to 1,024
+FULL_GEOMETRY = ["--requests", "8", "--hq", "24", "--hkv", "8",
+                 "--head-dim", "128", "--block-size", "16", "--long-blocks",
+                 "1024", "--short-blocks-max", "64"]
+FULL_BENCH = FULL_GEOMETRY + ["--steps", "4", "--tile-blocks", "4",
+                              "--split-k", "2"]
+
+
+def _host_ms(fn, iters=20):
+    """Mean host time to enqueue one call of ``fn`` (no device wait)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return host
+
+
+def phase_decode_bench(dev, card):
+    """The ported decode_paged_bench's measuring function at the
+    reference's defaults and at the full-width geometry, then each
+    kernel's device time per launch and host enqueue time per call at the
+    first step (the bench's events time whichever is longer). Returns the
+    full-width run's (args, K8 launches)."""
+    import numpy as np
+    import torch
+    from repro_torch.benchmarks import decode_paged_bench as bench
+    from repro_torch.kernels.flash_decode_paged import (
+        flash_decode_paged, flash_decode_paged_single)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    out = None
+    for label, argv in (("defaults", []), ("full-width", FULL_BENCH)):
+        args = bench.parse_args(argv + ["--device", "cuda"])
+        _reset_counts()
+        single_s, grouped_s, meta = bench.time_kernels(
+            args, np.random.default_rng(args.seed), dev)
+        k1, k8 = _paged_counts()
+        want = args.steps * (1 + args.repeats)
+        check(k8 == want and k1 == want,
+              f"decode bench {label}: launches K8 {k8}, K1 {k1} != {want}")
+        toks = args.requests * args.steps
+        dma = meta["gather_bytes_per_token_per_layer"]
+        print(f"[22] decode_paged_bench {label} (hq {args.hq}, hkv "
+              f"{args.hkv}, D {args.head_dim}, long row "
+              f"{args.long_blocks * args.block_size} tokens, table width "
+              f"{meta['table_width']}, tile {args.tile_blocks}, split "
+              f"{args.split_k}, {args.steps} steps, best of "
+              f"{args.repeats}): per-head K8 {toks / single_s:.1f} tok/s "
+              f"({single_s * 1e3:.4f} ms), grouped K1 "
+              f"{toks / grouped_s:.1f} tok/s ({grouped_s * 1e3:.4f} ms), "
+              f"ratio {single_s / grouped_s:.3f}, modeled gather-bytes ratio "
+              f"{dma['ratio']}; launches K8 {k8}, K1 {k1}; {card}")
+        wl = bench.workload(args, np.random.default_rng(args.seed), dev)
+        q, kp, vp, bt = wl["q"], wl["kp"], wl["vp"], wl["bt"]
+        ln = wl["lens_steps"][0]
+        saved = _paged_counts()
+        for name, fn in (
+                ("K8", lambda: flash_decode_paged_single(q, kp, vp, bt, ln)),
+                ("K1", lambda: flash_decode_paged(
+                    q, kp, vp, bt, ln, kv_tile_blocks=args.tile_blocks,
+                    split_k=args.split_k))):
+            print(f"[22] decode_paged_bench {label} step 0: {name} device "
+                  f"{_time_ms(fn, flush):.4f} ms per launch (L2 flushed, "
+                  f"device wait before), host enqueue {_host_ms(fn):.4f} ms "
+                  f"per call")
+        _set_paged_counts(saved)          # timing launches do not count
+        del wl, q, kp, vp, bt
+        if label == "full-width":
+            out = (args, k8)
+    return out
+
+
+def _autotune_engine(cfg, params, prompts, max_new, dev, mode):
+    """The prompts through the paged engine under one autotune mode: greedy
+    streams, the logits behind each token by (prompt index, step) on the
+    host, K1/K8 launches, the decode steps and the engine."""
+    from repro_torch.serve import ContinuousEngine, check_invariants
+    eng = ContinuousEngine(cfg, params, block_size=16, num_blocks=2048,
+                           max_batch=len(prompts),
+                           max_len=max(len(p) for p in prompts) + max_new,
+                           kv_tile_blocks=4, decode_split_k=2,
+                           autotune=mode, device=dev)
+    rec = _paged_logits(eng)
+    _reset_counts()
+    t0 = time.perf_counter()
+    handles = [eng.submit(p, max_new) for p in prompts]
+    res = eng.run()
+    wall = time.perf_counter() - t0
+    counts = _paged_counts()
+    check_invariants(eng.pool, eng.prefix_cache)
+    streams = [res[h.req_id].tokens for h in handles]
+    logits = {(i, t): rec[h.req_id, t].float().cpu()
+              for i, h in enumerate(handles) for t in range(max_new)}
+    return streams, logits, counts, eng.metrics.decode_steps, wall, eng
+
+
+def phase_autotune(dev, card):
+    """Full-width autotune: off / static / per-step engines, then the
+    modeled argmin against the measured fastest grid on a replay of
+    autotune_bench's full-width trajectory."""
+    import numpy as np
+    import torch
+    from repro_torch.benchmarks import autotune_bench
+    from repro_torch.kernels.flash_decode_paged import flash_decode_paged
+    from repro_torch.serve.autotune import GridPlanner
+    cfg, params, _ = _full_width_llama(dev)
+    rng = np.random.default_rng(0)            # phase 5's prompts
+    lens = rng.integers(128, 1025, 8)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    max_new, V = 32, cfg.vocab_size
+    runs = {}
+    for mode in ("off", "static", "per-step"):
+        streams, logits, (k1, k8), n_dec, wall, eng = _autotune_engine(
+            cfg, params, prompts, max_new, dev, mode)
+        check(k1 == cfg.n_layers * n_dec and k1 > 0 and k8 == 0,
+              f"autotune {mode}: launches K1 {k1} (decode steps {n_dec}), "
+              f"K8 {k8}")
+        check(all(len(s) == max_new for s in streams),
+              f"autotune {mode}: a request did not finish")
+        dec = "" if eng.planner is None else \
+            f", decisions {eng.planner.summary()}"
+        print(f"[23] autotune {mode}: grid (tile {eng.kv_tile_blocks}, "
+              f"split {eng.decode_split_k}){dec}; {len(prompts)} requests x "
+              f"{max_new} tokens in {wall:.2f}s, K1 launches {k1} "
+              f"({n_dec} decode steps)")
+        runs[mode] = (streams, logits)
+        del eng
+        torch.cuda.empty_cache()
+    off, off_logits = runs["off"]
+    tokens = np.array(off)
+    s_logits = [torch.stack([off_logits[b, t] for b in range(len(off))])
+                for t in range(max_new)]
+    for mode in ("static", "per-step"):
+        streams, logits = runs[mode]
+        share, lines = _near_tie_audit(tokens, streams, s_logits, logits, V)
+        print(f"[23] off vs {mode}: {share:.3f} of greedy tokens equal, "
+              f"{sum(a == b for a, b in zip(off, streams))}/{len(off)} "
+              f"streams equal")
+        for line in lines:
+            print(f"[23] off ('static') vs {mode} ('paged') near-tie audit: "
+                  + line)
+    del params, runs
+    torch.cuda.empty_cache()
+
+    # modeled argmin against the measured fastest grid
+    args = autotune_bench.parse_args(FULL_GEOMETRY + ["--device", "cuda"])
+    steps = autotune_bench.trajectory(args)
+    cands = autotune_bench.candidates(args)
+    planner = GridPlanner(cands, cost_params=autotune_bench.cost_params(args),
+                          n_q_heads=args.hq, n_kv_heads=args.hkv,
+                          head_dim=args.head_dim, block_size=args.block_size,
+                          kv_dtype=args.kv_dtype)
+    BS, B = args.block_size, args.requests
+    blocks = [-(-int(max(ln[b] for ln, _ in steps)) // BS) for b in range(B)]
+    W_max = max(w for _, w in steps)
+    N = sum(blocks) + 1
+    rng = np.random.default_rng(23)
+    kp = _rand(rng, (N, args.hkv, BS, args.head_dim)).to(dev)
+    vp = _rand(rng, (N, args.hkv, BS, args.head_dim)).to(dev)
+    table = np.zeros((B, W_max), np.int32)
+    nxt = 1
+    for b, nb in enumerate(blocks):
+        table[b, :nb] = np.arange(nxt, nxt + nb)
+        nxt += nb
+    table = torch.from_numpy(table).to(dev)
+    q = _rand(rng, (B, args.hq, args.head_dim),
+              args.head_dim ** -0.5).to(dev)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    saved = _paged_counts()
+    sample = list(range(0, len(steps), 4))
+    agree, picks, lines = 0, {}, []
+    for i in sample:
+        ln_np, w = steps[i]
+        dec = planner.rank(ln_np, w)
+        bt = table[:, :w].contiguous()
+        ln = torch.from_numpy(ln_np.astype(np.int32)).to(dev)
+        ms = {}
+        for T, S in cands:
+            ms[T, S] = _time_ms(lambda: flash_decode_paged(
+                q, kp, vp, bt, ln, kv_tile_blocks=T, split_k=S), flush,
+                iters=5)
+        fastest = min(ms, key=ms.get)
+        chosen = (dec.kv_tile_blocks, dec.split_k)
+        agree += int(ms[chosen] == ms[fastest])
+        key = f"t{chosen[0]}_s{chosen[1]}"
+        picks[key] = picks.get(key, 0) + 1
+        lines.append(f"step {i} (width {w}, longest {int(ln_np.max())}): "
+                     f"modeled t{chosen[0]}_s{chosen[1]} "
+                     f"{ms[chosen]:.4f} ms, measured fastest "
+                     f"t{fastest[0]}_s{fastest[1]} {ms[fastest]:.4f} ms; "
+                     + ", ".join(f"t{t}_s{s} {v:.4f}"
+                                 for (t, s), v in sorted(ms.items())))
+    _set_paged_counts(saved)              # timing launches do not count
+    for line in lines:
+        print("[23] trajectory " + line)
+    print(f"[23] autotune_bench full-width trajectory ({len(steps)} steps, "
+          f"{len(sample)} sampled, candidates {args.candidates}, machine "
+          f"model cores {args.cores} flops/s {args.flops_per_s:g}): modeled "
+          f"argmin is the measured fastest on {agree}/{len(sample)} steps; "
+          f"modeled picks {picks}; {card}")
+
+
+def phase_single_times(dev, bench_args, launches):
+    """K8 at the phase-22 full-width shape (the first timed step)."""
+    import numpy as np
+    import torch
+    from repro_torch.benchmarks import decode_paged_bench as bench
+    from repro_torch.kernels.flash_decode_paged import (
+        flash_decode_paged_single, paged_decode_single_plain)
+    from repro_torch.kernels.parity import parity_error, tolerance
+    wl = bench.workload(bench_args, np.random.default_rng(bench_args.seed),
+                        dev)
+    q, kp, vp, bt = wl["q"], wl["kp"], wl["vp"], wl["bt"]
+    ln = wl["lens_steps"][0]
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    saved = _paged_counts()
+    got = flash_decode_paged_single(q, kp, vp, bt, ln)
+    err, held = parity_error(got, paged_decode_single_plain(q, kp, vp, bt,
+                                                            ln))
+    check(held <= tolerance(q.dtype), f"K8 full-width shape: {err}")
+    ms = _time_ms(lambda: flash_decode_paged_single(q, kp, vp, bt, ln),
+                  flush)
+    plain = _time_ms(lambda: paged_decode_single_plain(q, kp, vp, bt, ln),
+                     flush, iters=2)
+    _set_paged_counts(saved)              # timing launches do not count
+    B, Hq, D = q.shape
+    Hkv = kp.shape[1]
+    rows = int(ln.sum().item())
+    # K/V rows within the lengths read once per KV head (the least any
+    # kernel of this function moves), q read and the output written once,
+    # the tables and lengths
+    nbytes = (2 * rows * Hkv * D * 4 + 2 * q.numel() * 4 + bt.numel() * 4
+              + B * 4)
+    row = _row("flash_decode_paged_single", "flash_decode_paged_single.cu",
+               "src/repro/kernels/flash_decode_paged/"
+               "flash_decode_paged.py:302", launches, 1, err, ms, plain,
+               nbytes, 4 * Hq * rows * D)
+    print(f"[24] K8 at the full-width bench shape (B {B}, Hq {Hq}, Hkv "
+          f"{Hkv}, D {D}, {rows} cached rows, table width {bt.shape[1]}, "
+          f"f32 pool): {ms:.4f} ms (bound {row['bound_ms']:.4f} ms by "
+          f"{row['bound_by']}, plain {plain:.4f} ms), max |err| vs plain "
+          f"{err:.3g}")
+    return [row]
+
+
 def _row(name, src, replaces, launches, per_step, err, ms, plain, nbytes,
          flops, library=None):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1714,6 +2081,12 @@ def main() -> int:
     print("[20] sm clock, power draw, temperature: " +
           card_line("clocks.sm,power.draw,temperature.gpu"))
     kernels += phase_softermax_times(dev, k6_launches, k7_launches, n_layers)
+    phase_single_parity(dev)
+    bench_args, k8_launches = phase_decode_bench(dev, card)
+    phase_autotune(dev, card)
+    print("[24] sm clock, power draw, temperature: " +
+          card_line("clocks.sm,power.draw,temperature.gpu"))
+    kernels += phase_single_times(dev, bench_args, k8_launches)
     for k in kernels:
         k["card"] = card
         lib = "" if k["library_ms"] is None else \

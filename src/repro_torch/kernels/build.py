@@ -39,6 +39,9 @@ _SIGNATURES = {
     # q, k_pool, v_pool, k_scale, v_scale, tables, lengths, acc, m, d, out,
     # B, Hq, Hkv, D, BS, Wp, T, S, spl, q_dtype, kv_dtype, intmax, stream
     "smx_paged_decode": ([_P] * 11 + [_I] * 12 + [_P], _I),
+    # q, k_pool, v_pool, k_scale, v_scale, tables, lengths, out,
+    # B, Hq, Hkv, D, BS, nb, q_dtype, kv_dtype, intmax, stream
+    "smx_paged_decode_single": ([_P] * 8 + [_I] * 9 + [_P], _I),
     # q, k_pool, v_pool, k_scale, v_scale, tables, q_pos0, out,
     # B, Hq, Hkv, Sq, D, BS, Wp, BQ, q_dtype, kv_dtype, intmax, stream
     "smx_paged_prefill": ([_P] * 8 + [_I] * 11 + [_P], _I),

@@ -1,4 +1,4 @@
-"""Paged decode attention: the CUDA kernel's wrapper and the dispatcher.
+"""Paged decode attention: the CUDA kernels' wrappers and the dispatchers.
 
 ``flash_decode_paged`` launches the hand-written Hopper kernel
 (``csrc/flash_decode_paged.cu``), which replaces the Pallas TPU kernel
@@ -6,11 +6,19 @@
 bound by bytes: a gather at low arithmetic intensity (see the source's
 note). Its launch count is ``flash_decode_paged.launches``.
 
+``flash_decode_paged_single`` launches the per-query-head kernel
+(``csrc/flash_decode_paged_single.cu``), which replaces the TPU kernel
+``flash_decode_paged_single`` (``flash_decode_paged.py:302``): the
+benchmark baseline the grouped kernel is measured against, never on the
+serving path. Its launch count is ``flash_decode_paged_single.launches``.
+
 ``flash_decode_paged_op`` is the one dispatcher every caller uses: a CUDA
 tensor goes to the kernel, a CPU tensor to the plain PyTorch version
 ``paged_decode_ref``. There is no fallback between the two — a build or
 launch failure raises. Tile and split are layout knobs: every setting
 computes the same attention, so the plain version ignores them.
+``flash_decode_paged_single_op`` dispatches K8 the same way, to
+``plain.paged_decode_single_plain`` on the CPU.
 """
 from __future__ import annotations
 
@@ -18,6 +26,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.dtypes import kv_code, q_code
+from repro_torch.kernels.flash_decode_paged.plain import \
+    paged_decode_single_plain
 from repro_torch.kernels.flash_decode_paged.ref import (paged_decode_ref,
                                                         pad_table,
                                                         split_layout)
@@ -107,3 +117,51 @@ def flash_decode_paged_op(q, k_pool, v_pool, block_tables, lengths, *,
                                   split_k=split_k)
     return paged_decode_ref(q, k_pool, v_pool, block_tables, lengths,
                             k_scale=k_scale, v_scale=v_scale, intmax=intmax)
+
+
+def flash_decode_paged_single(q: torch.Tensor, k_pool: torch.Tensor,
+                              v_pool: torch.Tensor, block_tables: torch.Tensor,
+                              lengths: torch.Tensor, *, k_scale=None,
+                              v_scale=None,
+                              intmax: bool = True) -> torch.Tensor:
+    """q (B, Hq, D) pre-scaled, float32 or bfloat16; pools (N, Hkv, BS, D)
+    f32/bf16/int8; int8 scales (N, Hkv, BS) f32; tables (B, nb); lengths
+    (B,) → (B, Hq, D) in q's dtype. Any GQA group size."""
+    check_operands("flash_decode_paged_single", q, k_pool, v_pool, k_scale,
+                   v_scale, block_tables, lengths)
+    B, Hq, D = q.shape
+    _, Hkv, BS, Dk = k_pool.shape
+    if Dk != D or Hq % Hkv or D > 256 or block_tables.shape[0] != B or \
+            tuple(lengths.shape) != (B,):
+        raise ValueError(f"unsupported geometry q {tuple(q.shape)}, pool "
+                         f"{tuple(k_pool.shape)}, table "
+                         f"{tuple(block_tables.shape)}, lengths "
+                         f"{tuple(lengths.shape)} (head dim must be <= 256)")
+    bt = block_tables.to(torch.int32).contiguous()
+    lens = lengths.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    lib = build.load_library()
+    err = lib.smx_paged_decode_single(
+        build.ptr(q), build.ptr(k_pool), build.ptr(v_pool),
+        build.ptr(k_scale), build.ptr(v_scale), build.ptr(bt),
+        build.ptr(lens), build.ptr(out), B, Hq, Hkv, D, BS, bt.shape[1],
+        q_code(q.dtype), kv_code(k_pool.dtype), int(intmax),
+        build.stream_ptr(q.device))
+    build.check(err, "flash_decode_paged_single")
+    flash_decode_paged_single.launches += 1
+    return out
+
+
+flash_decode_paged_single.launches = 0
+
+
+def flash_decode_paged_single_op(q, k_pool, v_pool, block_tables, lengths, *,
+                                 k_scale=None, v_scale=None,
+                                 intmax: bool = True) -> torch.Tensor:
+    if q.is_cuda:
+        return flash_decode_paged_single(q, k_pool, v_pool, block_tables,
+                                         lengths, k_scale=k_scale,
+                                         v_scale=v_scale, intmax=intmax)
+    return paged_decode_single_plain(q, k_pool, v_pool, block_tables,
+                                     lengths, k_scale=k_scale,
+                                     v_scale=v_scale, intmax=intmax)

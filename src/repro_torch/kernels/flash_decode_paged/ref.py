@@ -12,6 +12,11 @@ padded KV walk is cut into ``split_k`` partitions, each reduced to its
 partial ``(m, d, acc)`` in closed form, merged with ``softermax_merge`` —
 including the identity ``(NEG_INF, 0, 0)`` of partitions that sit wholly
 past a sequence's length.
+
+``decode_gather_oracle`` MEASURES the gather traffic of one decode launch
+as the TPU kernel moves it (every padded table entry, block 0 included),
+off the shapes of the gathers it actually runs; the analytic model
+``serve/kernel_costs.py`` is pinned against it.
 """
 from __future__ import annotations
 
@@ -69,6 +74,40 @@ def gather_kv_dequant(pool: torch.Tensor, scales, block_tables: torch.Tensor,
         return g
     s = gather_scales(scales, block_tables)
     return (g.float() * s[..., None].float()).to(dtype)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def decode_gather_oracle(k_pool, v_pool, block_tables, lengths, *,
+                         kv_tile_blocks: int = 1, split_k: int = 1,
+                         k_scale=None, v_scale=None) -> dict:
+    """Pad the table exactly as the kernel wrapper does (``split_layout``),
+    run the gathers on it, and count bytes off the gathered tensors.
+
+    Returns ``{"gather_bytes", "useful_bytes", "waste_bytes",
+    "grid_steps", "padded_width"}``; waste counts table entries at or past
+    each row's real block cover ``ceil(len/BS)`` (pow2 bucketing, tile
+    padding, dead tail blocks alike), int8 scale siblings included."""
+    B, W = block_tables.shape
+    _, Hkv, BS, D = k_pool.shape
+    _, S, spl, Wp = split_layout(W, kv_tile_blocks, split_k)
+    bt = pad_table(block_tables, Wp)
+    gk = gather_kv(k_pool, bt)                # the real takes: bytes come
+    gv = gather_kv(v_pool, bt)                # off their shapes
+    gather = _nbytes(gk) + _nbytes(gv)
+    per_block = gk.element_size() * BS * D * 2
+    if k_scale is not None:
+        gks = gather_scales(k_scale, bt)
+        gvs = gather_scales(v_scale, bt)
+        gather += _nbytes(gks) + _nbytes(gvs)
+        per_block += gks.element_size() * BS * 2
+    useful_blocks = sum(min(-(-int(ln) // BS), Wp) for ln in list(lengths))
+    useful = useful_blocks * Hkv * per_block
+    return {"gather_bytes": gather, "useful_bytes": useful,
+            "waste_bytes": gather - useful, "grid_steps": B * Hkv * S * spl,
+            "padded_width": Wp}
 
 
 def paged_decode_ref(q, k_pool, v_pool, block_tables, lengths, *,

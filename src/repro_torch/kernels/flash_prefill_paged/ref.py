@@ -11,19 +11,61 @@ engine's chunked prefill: the same attention, but the leading prefix
 blocks — provably below every query position under the engine's table
 bucketing — skip the mask compare and select; only a static-size tail
 region is masked.
+
+``prefill_gather_oracle`` MEASURES one launch's gather traffic as the TPU
+kernel moves it (the kv walk re-streamed once per query tile); the
+analytic model ``serve/kernel_costs.py`` is pinned against it.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.numerics import NEG_INF
-from repro_torch.kernels.flash_decode_paged.ref import gather_kv_dequant
+from repro_torch.kernels.flash_decode_paged.ref import (_nbytes, gather_kv,
+                                                        gather_kv_dequant,
+                                                        gather_scales,
+                                                        pad_table,
+                                                        split_layout)
 
 
 def _recip(d: torch.Tensor) -> torch.Tensor:
     pos = d > 0
     return torch.where(pos, 1.0 / torch.where(pos, d, torch.ones_like(d)),
                        torch.zeros_like(d))
+
+
+def prefill_gather_oracle(k_pool, v_pool, block_tables, q_pos0, q_len: int,
+                          *, kv_tile_blocks: int = 1, block_q: int = 128,
+                          cover_blocks=None, k_scale=None,
+                          v_scale=None) -> dict:
+    """Pad the table as the kernel wrapper does, run the gathers of ONE kv
+    walk, and multiply by the query tiles ``nq`` (the grid ``(B*Hkv, nq,
+    nk)`` re-streams the walk once per query tile). ``cover_blocks`` (B,)
+    are the REAL table entries per row; by default the exact cover of
+    ``pos0 + q_len`` positions."""
+    B, W = block_tables.shape
+    _, Hkv, BS, D = k_pool.shape
+    _, _, nk, Wp = split_layout(W, kv_tile_blocks, 1)
+    BQ = min(block_q, q_len)
+    nq = -(-q_len // BQ)
+    bt = pad_table(block_tables, Wp)
+    gk = gather_kv(k_pool, bt)
+    gv = gather_kv(v_pool, bt)
+    walk = _nbytes(gk) + _nbytes(gv)
+    per_block = gk.element_size() * BS * D * 2
+    if k_scale is not None:
+        gks = gather_scales(k_scale, bt)
+        gvs = gather_scales(v_scale, bt)
+        walk += _nbytes(gks) + _nbytes(gvs)
+        per_block += gks.element_size() * BS * 2
+    if cover_blocks is None:
+        cover_blocks = [-(-(int(p) + q_len) // BS) for p in list(q_pos0)]
+    useful_blocks = sum(min(int(c), Wp) for c in list(cover_blocks))
+    gather = walk * nq
+    useful = useful_blocks * Hkv * per_block * nq
+    return {"gather_bytes": gather, "useful_bytes": useful,
+            "waste_bytes": gather - useful,
+            "grid_steps": B * Hkv * nq * nk, "padded_width": Wp}
 
 
 def paged_prefill_ref(q, k_pool, v_pool, block_tables, q_pos0, *,

@@ -7,6 +7,10 @@ the paged KV pool (``--engine paged``).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
         --engine paged --batch 8 --prompt-len 512 --max-new 32 \
         --block-size 16 --num-blocks 2048 --prefill-chunk 256
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
+        --engine paged --batch 8 --prompt-len 1024 --max-new 32 \
+        --block-size 16 --num-blocks 2048 --kv-tile-blocks 4 \
+        --decode-split-k 2 --autotune per-step
 
 Runs on the CUDA card by default; ``--device cpu`` runs the plain PyTorch
 versions of the kernels instead (with ``--reduced`` for a CPU-sized model).
@@ -74,6 +78,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="split each decode lane's KV walk across this many "
                          "parallel lanes, merged by the exact Softermax "
                          "combine (layout only)")
+    ap.add_argument("--autotune", choices=("off", "static", "per-step"),
+                    default="off",
+                    help="paged engine: grid autotuning from the analytic "
+                         "kernel cost model (serve/kernel_costs.py). "
+                         "'static' picks one (kv_tile_blocks, split_k) at "
+                         "startup by modeled cost on the worst-case batch; "
+                         "'per-step' re-plans every decode step from the "
+                         "batch's lengths vector over the candidate grids. "
+                         "--kv-tile-blocks/--decode-split-k bound the "
+                         "candidate set")
     return ap.parse_args(argv)
 
 
@@ -107,7 +121,8 @@ def main(argv=None) -> None:
         prefill_budget=args.prefill_budget,
         kv_dtype=None if args.kv_dtype == "auto" else args.kv_dtype,
         kv_tile_blocks=args.kv_tile_blocks,
-        decode_split_k=args.decode_split_k, device=device)
+        decode_split_k=args.decode_split_k, autotune=args.autotune,
+        device=device)
     del params
     t0 = time.time()
     handles = [eng.submit(p, args.max_new, temperature=args.temperature)
@@ -128,6 +143,10 @@ def main(argv=None) -> None:
         log.info("prefix cache[%s]: hit %d/%d prompt tokens, %d COW",
                  args.evict_policy, cs.hit_tokens, cs.lookup_tokens,
                  m.cow_copies)
+    if eng.planner is not None:
+        log.info("autotune[%s]: grid=(tile=%d, split=%d), decisions %s",
+                 args.autotune, eng.kv_tile_blocks, eng.decode_split_k,
+                 eng.planner.summary() or "(static)")
     _report(cfg, device, rows, dt, "paged")
 
 

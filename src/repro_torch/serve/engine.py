@@ -19,7 +19,9 @@ blocks are evicted first and only then is the youngest request preempted
 prompt-prefix KV blocks between requests. With ``prefill_chunk > 0`` long
 prompts prefill in fixed-size chunks through ``kernels/flash_prefill_paged``,
 interleaved with decode steps. ``kv_dtype="int8"`` stores K/V as int8 with
-per-row scales.
+per-row scales. ``autotune="static" | "per-step"`` chooses the decode
+kernel's ``(kv_tile_blocks, split_k)`` grid by the modeled cost
+(``serve/autotune.py``) once at construction or in every decode step.
 
 Both engines run on the CUDA card unless ``device`` names another device;
 without a card the default raises. Both cast the matrix weights to the
@@ -46,6 +48,8 @@ from repro_torch.core.softermax import softmax_base2
 from repro_torch.models.lm import cast_matrix_params, maybe_cast_params
 from repro_torch.models.registry import model_fns
 from repro_torch.models.schema import tree_map, unstack_layers
+from repro_torch.serve.autotune import (AUTOTUNE_MODES, GridPlanner,
+                                       default_candidates)
 from repro_torch.serve.kv_pool import PagedKVCache, PoolStats
 from repro_torch.serve.paged_step import (check_paged_support,
                                           paged_decode_step, paged_prefill,
@@ -159,6 +163,7 @@ class ContinuousEngine:
                  prefill_chunk: int = 0, prefill_budget: int = 0,
                  kv_dtype: Optional[str] = None,
                  kv_tile_blocks: int = 1, decode_split_k: int = 1,
+                 autotune: str = "off", autotune_candidates=None,
                  device=None):
         check_paged_support(cfg)
         self.cfg = cfg
@@ -186,6 +191,10 @@ class ContinuousEngine:
                 f"{kv_tile_blocks}/{decode_split_k}")
         self.kv_tile_blocks = kv_tile_blocks
         self.decode_split_k = decode_split_k
+        if autotune not in AUTOTUNE_MODES:
+            raise ValueError(f"autotune must be one of {AUTOTUNE_MODES}, "
+                             f"got {autotune!r}")
+        self.autotune = autotune
         self.pool = PagedKVCache(cfg, num_blocks, block_size,
                                  kv_dtype=kv_dtype or "auto",
                                  device=self.device)
@@ -195,6 +204,24 @@ class ContinuousEngine:
         self.sched = Scheduler(self.pool, max_batch, max_len,
                                cache=self.prefix_cache)
         self.nb_max = -(-max_len // block_size)
+        # kernel grid autotuning (serve/autotune.py): "static" ranks the
+        # candidate grids once, here, on the worst-case batch (every row at
+        # max_len) and rebinds the knobs; "per-step" re-ranks them from
+        # each decode step's lengths vector
+        self.planner: Optional[GridPlanner] = None
+        if autotune != "off":
+            self.planner = GridPlanner(
+                autotune_candidates
+                or default_candidates(kv_tile_blocks, decode_split_k),
+                n_q_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                head_dim=cfg.head_dim, block_size=block_size,
+                kv_dtype=self.pool.kv_dtype)
+            if autotune == "static":
+                dec = self.planner.plan_decode(
+                    np.full((max_batch,), max_len, np.int64),
+                    table_width_bucket(self.nb_max, nb_max=self.nb_max))
+                self.kv_tile_blocks = dec.kv_tile_blocks
+                self.decode_split_k = dec.split_k
         self.metrics = EngineMetrics()
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._rows: List[Optional[Request]] = [None] * max_batch
@@ -508,11 +535,16 @@ class ContinuousEngine:
         bt = np.zeros((B, w), np.int32)
         bt[[i for i, _ in occ]] = self.pool.table_array(
             [r.req_id for _, r in occ], w)
+        # the kernel attends lengths+1 on every row (zombies included,
+        # masked): plan against what it does
+        tile, split = self.kv_tile_blocks, self.decode_split_k
+        if self.autotune == "per-step":
+            plan = self.planner.plan_decode(lengths + 1, w)
+            tile, split = plan.kv_tile_blocks, plan.split_k
         lg = paged_decode_step(self.params, tokens1, self.pool.k,
                                self.pool.v, self._tensor(bt),
                                self._tensor(lengths), self.cfg,
-                               kv_tile_blocks=self.kv_tile_blocks,
-                               decode_split_k=self.decode_split_k,
+                               kv_tile_blocks=tile, decode_split_k=split,
                                **self._scales())
         greedy = self._greedy(lg)
         if greedy_only:

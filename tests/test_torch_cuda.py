@@ -16,7 +16,10 @@ flash kernels' fp32 row statistics to 1e-5 in every dtype. The Softermax
 row kernel (K6) is held by the same rule to its plain version computed in
 float32; the fixed-point kernel (K7) is held EXACTLY (``torch.equal``) to
 its mirror ``softermax_quant_plain`` and within one Q(1,7) step, 2^-7, of
-``softermax_fixed`` (``kernels/softermax_quant/ref.py``).
+``softermax_fixed`` (``kernels/softermax_quant/ref.py``). The per-head
+paged decode kernel (K8) is held by the same rule (float32 outputs 1e-5,
+bfloat16 outputs 1e-2 of each element's size) to its plain version
+``paged_decode_single_plain`` and to K1 on the same inputs.
 """
 import numpy as np
 import pytest
@@ -26,9 +29,10 @@ from repro_torch.kernels.flash_attention import (
     flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
     flash_attention_op, flash_attention_plain)
 from repro_torch.kernels.flash_decode import decode_ref, flash_decode
-from repro_torch.kernels.flash_decode_paged import (flash_decode_paged,
-                                                    paged_decode_ref,
-                                                    paged_decode_split_ref)
+from repro_torch.kernels.flash_decode_paged import (
+    flash_decode_paged, flash_decode_paged_single,
+    flash_decode_paged_single_op, paged_decode_ref,
+    paged_decode_single_plain, paged_decode_split_ref)
 from repro_torch.kernels.flash_prefill_paged import (flash_prefill_paged,
                                                      paged_prefill_ref)
 from repro_torch.kernels.parity import F32_ATOL, parity_error, tolerance
@@ -399,3 +403,64 @@ def test_fixed_point_engines_on_the_card(cuda_device):
     res = eng.run()
     assert streams["cpu"] == streams[str(cuda_device)] == \
         [res[h.req_id].tokens for h in handles]
+
+
+def _single_inputs(rng, device, kv, G, BS, lens, W=6, Hkv=2, D=64):
+    """K8 inputs: tables whose entries past each row's block cover are
+    garbage (other rows' blocks)."""
+    B = len(lens)
+    N = B * W + 1
+    kp, vp, ks, vs = _pools(rng, N, Hkv, BS, D, kv, device)
+    tables = rng.permutation(np.arange(1, N)).reshape(B, W)
+    for b, ln in enumerate(lens):
+        cover = -(-ln // BS)
+        tables[b, cover:] = rng.integers(0, N, W - cover)
+    bt = torch.from_numpy(tables.astype(np.int32)).to(device)
+    ln = torch.tensor(lens, dtype=torch.int32, device=device)
+    qdt = torch.bfloat16 if kv == "bf16" else torch.float32
+    q = torch.from_numpy(rng.normal(size=(B, G * Hkv, D)).astype(np.float32)
+                         / np.sqrt(D)).to(device, qdt)
+    return q, kp, vp, bt, ln, ks, vs
+
+
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("intmax", [True, False])
+@pytest.mark.parametrize("G", [1, 3, 4, 8, 12])
+@pytest.mark.parametrize("BS", [8, 16])
+def test_single_decode_kernel_matches_plain_and_k1(cuda_device, kv, intmax,
+                                                   G, BS):
+    rng = np.random.default_rng(200 + 7 * G + BS)
+    lens = [0, 1, BS, 2 * BS + 5, 6 * BS - 3]     # length 0 first
+    q, kp, vp, bt, ln, ks, vs = _single_inputs(rng, cuda_device, kv, G, BS,
+                                               lens)
+    got = flash_decode_paged_single(q, kp, vp, bt, ln, k_scale=ks,
+                                    v_scale=vs, intmax=intmax)
+    torch.cuda.synchronize()
+    want = paged_decode_single_plain(q, kp, vp, bt, ln, k_scale=ks,
+                                     v_scale=vs, intmax=intmax)
+    assert got.dtype == q.dtype
+    assert parity_error(got, want)[1] <= tolerance(q.dtype)
+    assert torch.all(got[0] == 0)
+    if G > 8:                                      # K1 holds groups <= 8
+        return
+    for T, S in ((1, 1), (4, 2)):
+        k1 = flash_decode_paged(q, kp, vp, bt, ln, k_scale=ks, v_scale=vs,
+                                intmax=intmax, kv_tile_blocks=T, split_k=S)
+        assert parity_error(got, k1)[1] <= tolerance(q.dtype)
+
+
+def test_single_decode_kernel_counts_and_dispatch(cuda_device):
+    rng = np.random.default_rng(5)
+    q, kp, vp, bt, ln, _, _ = _single_inputs(rng, cuda_device, "f32", 3, 16,
+                                             [3, 40])
+    before = flash_decode_paged_single.launches
+    a = flash_decode_paged_single(q, kp, vp, bt, ln)
+    b = flash_decode_paged_single_op(q, kp, vp, bt, ln)
+    assert flash_decode_paged_single.launches == before + 2
+    assert torch.equal(a, b)
+    cpu = [t.cpu() for t in (q, kp, vp, bt, ln)]
+    c = flash_decode_paged_single_op(*cpu)
+    assert flash_decode_paged_single.launches == before + 2
+    assert (c - a.cpu()).abs().max().item() <= F32_ATOL
+    with pytest.raises(ValueError):
+        flash_decode_paged_single(*cpu)

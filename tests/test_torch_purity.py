@@ -8,7 +8,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch.benchmarks import table3_accuracy
+from repro_torch.benchmarks import (autotune_bench, decode_paged_bench,
+                                    table3_accuracy)
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
 from repro_torch.serve import ContinuousEngine, ServeEngine
@@ -46,6 +47,8 @@ def test_entry_points_default_to_the_card():
         assert launch_serve.parse_args(["--engine", engine]).device == "cuda"
     assert launch_train.parse_args([]).device == "cuda"
     assert table3_accuracy.parse_args([]).device == "cuda"
+    assert decode_paged_bench.parse_args([]).device == "cuda"
+    assert autotune_bench.parse_args([]).device == "cuda"
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"
     else:
