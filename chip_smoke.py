@@ -19,20 +19,26 @@ Phases, in order; any failure raises and exits non-zero:
 6. Kernel times at the main path's shapes (CUDA events, L2 flushed between
    launches) beside their bound and their plain versions.
 7. Flash-attention kernel parity: K3 (o, m, d) and K4 (dq, dk, dv) against
-   their plain versions, bf16 and fp32, IntMax on and off, causal and not,
-   GQA groups 1 and 3, Sq = Sk and Sq < Sk, lengths off every tile.
+   their plain versions, bf16 (the tensor-core kernels) and fp32 (the
+   CUDA-core kernels), IntMax on and off, causal and not, GQA groups 1 and
+   3, Sq = Sk and Sq < Sk, lengths off every tile, D 128, 64 and 16; the
+   route each case took; under IntMax m equal to the plain version's.
 8. Training parity at reduced llama3.2-3b in float32, attention_impl
    "flash": three steps on the card (kernels) against the same steps on
-   the CPU (plain versions).
+   the CPU (plain versions), through the CUDA-core K3/K4 (fp32).
 9. Full-width training of llama3.2-3b: 28 layers, bf16 compute, fp32
    master weights and AdamW state, remat "full", seq 4096, batch 1, random
    weights; one step with the plain chunked attention, then three steps
-   through K3/K4 from the same weights and batch; step time, tokens/s,
-   peak memory and launches per step.
+   through K3/K4 from the same weights and batch, every launch on the
+   tensor-core kernels; step time, tokens/s, peak memory, launches per
+   step and a profile of one step.
 10. K3 and K4 times at the full-width shape beside their bound, their
-   plain versions and PyTorch's scaled_dot_product_attention (forward,
+   plain versions, the CUDA-core kernels on the same bf16 inputs (their
+   earlier route) and PyTorch's scaled_dot_product_attention (forward,
    and its autograd backward), which computes the same function up to
-   rounding and is timed here only as a yardstick.
+   rounding and is timed here only as a yardstick; achieved TFLOP/s and
+   the new kernels' registers and spills. The CUDA-core kernels' own
+   route (fp32) is timed at the same shape.
 11. Contiguous decode kernel parity: K5 against its plain version, bf16
    and fp32, IntMax on and off, GQA groups 1, 3, 4 and 8, caches of 37 and
    1056 rows, lengths 1, the chunk and pass boundaries +-1 and the whole
@@ -255,6 +261,8 @@ def _reset_counts():
     flash_prefill_paged.launches = 0
     flash_attention.launches = 0
     flash_attention_bwd.launches = 0
+    flash_attention.launches_tc = 0
+    flash_attention_bwd.launches_tc = 0
     flash_decode.launches = 0
     softermax_rows.launches = 0
     softermax_quant_rows.launches = 0
@@ -278,6 +286,13 @@ def _flash_counts():
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
     return flash_attention.launches, flash_attention_bwd.launches
+
+
+def _flash_tc_counts():
+    """(K3, K4) launches on the tensor-core route alone."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    return flash_attention.launches_tc, flash_attention_bwd.launches_tc
 
 
 def _counts():
@@ -444,9 +459,11 @@ def phase_full_width(dev):
     return main_counts
 
 
-def step_profile(step, n_steps: int, label: str) -> str:
+def step_profile(step, n_steps: int, label: str, watch=()) -> str:
     """Device-busy share and kernel time by name over ``n_steps`` calls of
-    ``step``, from the profiler's CUDA activity."""
+    ``step``, from the profiler's CUDA activity; with ``watch`` (kernel-name
+    prefixes), also those kernels' summed time and share of the busy
+    time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -468,12 +485,18 @@ def step_profile(step, n_steps: int, label: str) -> str:
         return f"{label} profile: device time not measured (no CUDA events)"
     busy = sum(kern.values()) / 1e3 / n_steps
     top = sorted(kern.items(), key=lambda kv: -kv[1])[:6]
-    return (f"{label} profile over {n_steps} steps: "
+    line = (f"{label} profile over {n_steps} steps: "
             f"{wall * 1e3 / n_steps:.2f} ms per step, device busy "
             f"{busy:.2f} ms per step "
             f"({100 * busy / (wall * 1e3 / n_steps):.0f}%), by kernel (ms "
             f"per step): " + ", ".join(f"{k} {v / 1e3 / n_steps:.3f}"
                                        for k, v in top))
+    if watch:
+        w = sum(v for k, v in kern.items()
+                if k.startswith(tuple(watch))) / 1e3 / n_steps
+        line += (f"; {' + '.join(watch)}: {w:.3f} ms per step "
+                 f"({100 * w / busy:.1f}% of busy)")
+    return line
 
 
 def _time_ms(fn, flush, iters=20):
@@ -566,17 +589,18 @@ def _lse_err(m, d, pm, pd):
 
 
 def phase_flash_parity(dev):
-    """K3 and K4 against their plain versions on the card."""
+    """K3 and K4 against their plain versions on the card, on both routes."""
     import numpy as np
     import torch
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
         flash_attention_plain)
     from repro_torch.kernels.parity import parity_error, tolerance
-    worst, worst_lse = {}, 0.0
+    worst, worst_lse, routes = {}, 0.0, {}
     # (B, Hkv, G, Sq, Sk, D)
     shapes = [(2, 2, 1, 77, 77, 128), (1, 2, 3, 50, 130, 128),
-              (1, 8, 3, 200, 200, 128), (2, 1, 3, 33, 70, 64)]
+              (1, 8, 3, 200, 200, 128), (2, 1, 3, 33, 70, 64),
+              (2, 2, 3, 77, 130, 16)]
     for shape in shapes:
         B, Hkv, G, Sq, Sk, D = shape
         rng = np.random.default_rng(Sq + Sk)
@@ -593,6 +617,7 @@ def phase_flash_parity(dev):
             for causal in (True, False):
                 for intmax in (True, False):
                     tag = f"{shape} {dtn} causal={causal} intmax={intmax}"
+                    tc0 = _flash_tc_counts()
                     o, m, d = flash_attention(q, k, v, causal=causal,
                                               intmax=intmax,
                                               return_stats=True)
@@ -608,9 +633,17 @@ def phase_flash_parity(dev):
                     if intmax:
                         check(bool(torch.equal(m, torch.ceil(m))),
                               f"K3 {tag}: IntMax m not integral")
+                        check(bool(torch.equal(m, pm)),
+                              f"K3 {tag}: IntMax m differs from plain")
                     grads = flash_attention_bwd(q, k, v, o, do, m, d,
                                                 causal=causal)
                     torch.cuda.synchronize()
+                    tc = [a - b for a, b in zip(_flash_tc_counts(), tc0)]
+                    routes[shape, dtn] = tuple(
+                        "tensor cores" if n else "CUDA cores" for n in tc)
+                    want = (1, 2) if dtn == "bfloat16" else (0, 0)
+                    check(tuple(tc) == want, f"{tag}: tensor-core launches "
+                                             f"{tc}, want {want}")
                     plain = flash_attention_bwd_plain(q, k, v, o, do, m, d,
                                                       causal=causal)
                     for name, g, w in zip(("dq", "dk", "dv"), grads, plain):
@@ -623,12 +656,15 @@ def phase_flash_parity(dev):
                         w = worst.get((kern, dtn), (0.0, 0.0))
                         worst[kern, dtn] = (max(w[0], errs[key][0]),
                                             max(w[1], errs[key][1]))
+    for (shape, dtn), (r3, r4) in routes.items():
+        print(f"[7] {shape} {dtn}: K3 on the {r3}, K4 on the {r4}")
     for (kern, dtn), (err, held) in sorted(worst.items()):
         tol = tolerance(getattr(torch, dtn))
         print(f"[7] {kern} vs plain, {dtn}: max |err| {err:.3g}, checked "
               f"error {held:.3g} <= {tol} ({len(shapes) * 4} cases)")
     print(f"[7] K3 row statistics m + log2(d) vs plain: max |err| "
-          f"{worst_lse:.3g} <= {F32_ATOL}")
+          f"{worst_lse:.3g} <= {F32_ATOL}; IntMax m equal to plain")
+    return worst["K3", "float32"][0], worst["K4", "float32"][0]
 
 
 def _train_run(cfg, params, tc, steps, data):
@@ -692,11 +728,14 @@ def phase_train_parity(dev):
                torch.linalg.vector_norm(c)).item()
         worst = max(worst, rel)
     check(worst <= 1e-4, f"train: final parameters differ by {worst}")
+    check(_flash_tc_counts() == (0, 0),
+          "f32 training launched the tensor-core kernels")
     print(f"[8] reduced llama3.2-3b f32 flash, 3 steps: card == cpu within "
           f"1e-4 (losses {[round(r[0]['loss'], 5) for r in grows]}, grad "
           f"norms {[round(r[0]['grad_norm'], 4) for r in grows]}, worst "
           f"parameter leaf rel L2 {worst:.3g}), launches K3/K4 per step "
-          f"{grows[0][2]}")
+          f"{grows[0][2]}, all on the CUDA cores")
+    return _flash_counts()
 
 
 def _true_fan_in(params):
@@ -764,15 +803,15 @@ def phase_train_full_width(dev):
     rows = []
 
     def step(p, o, batch):
-        c0 = _flash_counts()
+        c0 = _flash_counts() + _flash_tc_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         p, o, m = inner(p, o, batch)
         torch.cuda.synchronize()
-        c1 = _flash_counts()
+        c1 = _flash_counts() + _flash_tc_counts()
         rows.append(({k: float(v) for k, v in m.items()},
                      time.perf_counter() - t0,
-                     (c1[0] - c0[0], c1[1] - c0[1])))
+                     tuple(b - a for a, b in zip(c0, c1))))
         return p, o, m
 
     _reset_counts()
@@ -784,11 +823,16 @@ def phase_train_full_width(dev):
     L = cfg.n_layers
     check(len(out["history"]) == 3 and np.isfinite(out["history"]).all(),
           f"full-width flash: losses {out['history']}")
-    for s, (m, dt, (a, b)) in enumerate(rows):
+    for s, (m, dt, (a, b, a_tc, b_tc)) in enumerate(rows):
         check(np.isfinite(m["grad_norm"]), f"step {s}: grad norm {m}")
         check((a, b) == (2 * L, 2 * L),
               f"step {s}: launches K3 {a}, K4 {b} != {2 * L}, {2 * L}")
+        check((a_tc, b_tc) == (a, b),
+              f"step {s}: K3/K4 launches {a}/{b}, of which on the tensor "
+              f"cores {a_tc}/{b_tc}")
     check((k3, k4) == (6 * L, 6 * L), f"launches K3 {k3} K4 {k4}")
+    check(_flash_tc_counts() == (k3, k4),
+          f"tensor-core launches {_flash_tc_counts()} != {(k3, k4)}")
     rel = abs(rows[0][0]["loss"] - chunked["loss"]) / abs(chunked["loss"])
     check(rel <= 2e-2, f"flash step-0 loss {rows[0][0]['loss']} vs chunked "
                        f"{chunked['loss']}")
@@ -798,10 +842,11 @@ def phase_train_full_width(dev):
         chunked["grad_norm"]
     check(rel_gn <= 1e-3, f"flash step-0 grad norm {rows[0][0]['grad_norm']}"
                           f" vs chunked {chunked['grad_norm']}")
-    for s, (m, dt, (a, b)) in enumerate(rows):
+    for s, (m, dt, (a, b, a_tc, b_tc)) in enumerate(rows):
         print(f"[9] flash step {s}: loss {m['loss']:.5f} grad norm "
               f"{m['grad_norm']:.4f} lr {m['lr']:.3g}, {dt:.3f}s "
-              f"({B * S / dt:.0f} tokens/s), launches K3 {a} K4 {b}")
+              f"({B * S / dt:.0f} tokens/s), launches K3 {a} K4 {b}, on "
+              f"the tensor cores K3 {a_tc} K4 {b_tc}")
     print(f"[9] full-width flash vs chunked step 0: loss rel diff {rel:.3g} "
           f"<= 2e-2, grad norm rel diff {rel_gn:.3g} <= 1e-3; flash peak "
           f"memory {peak / 2 ** 30:.2f} GiB; launches over 3 "
@@ -814,55 +859,62 @@ def phase_train_full_width(dev):
     def profiled():
         state[0], state[1], _ = inner(state[0], state[1], batch)
 
-    print("[9] " + step_profile(profiled, 1, "training step"))
+    print("[9] " + step_profile(profiled, 1, "training step", watch=(
+        "flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel",
+        "flash_bwd_dq_tc_kernel")))
     del out, params, state
     torch.cuda.empty_cache()
     return (k3, k4)
 
 
-def phase_flash_times(dev, counts, n_layers):
-    """K3 / K4 at the full-width training shape, bf16, causal."""
+def _ptxas_kernels(report, sources):
+    """(kernel, registers, spill line) of each kernel ptxas compiled from
+    ``sources``."""
+    out = []
+    for sec in report.split("== ")[1:]:
+        if sec.split("\n", 1)[0].strip() not in sources:
+            continue
+        name = spill = None
+        for line in sec.splitlines():
+            if "Compiling entry function" in line:
+                name = line.split("'")[1]
+                for short in ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel",
+                              "flash_bwd_dq_tc_kernel"):
+                    if short in name:
+                        dp = name.split("ILi")[1].split("E")[0]
+                        name = f"{short}<{dp}>"
+            elif "spill stores" in line:
+                spill = line.strip()
+            elif "registers" in line and name:
+                regs = line.split("Used ")[1].split(" registers")[0]
+                out.append((name, int(regs), spill))
+                name = None
+    return out
+
+
+def phase_flash_times(dev, counts, f32_counts, f32_errs, n_layers):
+    """K3 / K4 at the full-width training shape, causal: the tensor-core
+    kernels (bf16, the training path) beside the CUDA-core kernels on the
+    same inputs (their earlier route), SDPA and the bounds; then the
+    CUDA-core kernels on their own route (f32)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
-        flash_attention_plain)
+        flash_attention_plain, ops)
     from repro_torch.kernels.parity import parity_error, tolerance
     rng = np.random.default_rng(2)
     B, Hq, Hkv, S, D = 1, 24, 8, 4096, 128
-    bf = torch.bfloat16
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
-    q = _rand(rng, (B, Hq, S, D), D ** -0.5).to(dev, bf)
-    k = _rand(rng, (B, Hkv, S, D)).to(dev, bf)
-    v = _rand(rng, (B, Hkv, S, D)).to(dev, bf)
-    do = _rand(rng, (B, Hq, S, D)).to(dev, bf)
-    saved = _flash_counts()
-    o, m, d = flash_attention(q, k, v, return_stats=True)
-    po, pm, pd = flash_attention_plain(q, k, v, return_stats=True)
-    err3, held3 = parity_error(o, po)
-    lse3 = _lse_err(m, d, pm, pd)
-    grads = flash_attention_bwd(q, k, v, o, do, m, d)
-    plain = flash_attention_bwd_plain(q, k, v, o, do, m, d)
-    err4, held4 = map(max, zip(*(parity_error(g, w) for g, w in zip(grads,
-                                                                    plain))))
-    tol = tolerance(bf)
-    check(held3 <= tol and lse3 <= F32_ATOL and held4 <= tol,
-          f"full-width shape: K3 o {err3} ({held3}), m + log2(d) {lse3}; "
-          f"K4 {err4} ({held4})")
-    check(bool(torch.equal(m, torch.ceil(m))), "K3: IntMax m not integral")
-    ms3 = _time_ms(lambda: flash_attention(q, k, v, return_stats=True),
-                   flush, iters=10)
-    plain3 = _time_ms(lambda: flash_attention_plain(q, k, v,
-                                                    return_stats=True),
-                      flush, iters=3)
-    ms4 = _time_ms(lambda: flash_attention_bwd(q, k, v, o, do, m, d), flush,
-                   iters=5)
-    plain4 = _time_ms(lambda: flash_attention_bwd_plain(q, k, v, o, do, m,
-                                                        d),
-                      flush, iters=3)
-    # timing and comparison launches do not count
-    flash_attention.launches, flash_attention_bwd.launches = saved
+    pairs = S * (S + 1) // 2 * Hq                  # causal, Sq = Sk
+
+    def inputs(dt):
+        return (_rand(rng, (B, Hq, S, D), D ** -0.5).to(dev, dt),
+                _rand(rng, (B, Hkv, S, D)).to(dev, dt),
+                _rand(rng, (B, Hkv, S, D)).to(dev, dt),
+                _rand(rng, (B, Hq, S, D)).to(dev, dt))
 
     # the library yardstick: SDPA with scale ln 2 is the base-2 softmax of
     # the pre-scaled scores (the normalization ignores the max it subtracts)
@@ -871,33 +923,118 @@ def phase_flash_times(dev, counts, n_layers):
                                               scale=math.log(2),
                                               enable_gqa=True)
 
+    def library(q, k, v, do):
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        lo = sdpa(ql, kl, vl)
+        return (_time_ms(lambda: sdpa(q, k, v), flush, iters=10),
+                _time_ms(lambda: torch.autograd.grad(lo, (ql, kl, vl), do,
+                                                     retain_graph=True),
+                         flush, iters=10))
+
+    def nbytes(el):
+        """What the function moves: q, k, v in, o and (m, d) out; q, k, v,
+        o, dO, (m, d) in and dq, dk, dv out in the inputs' dtype."""
+        qb, kvb = B * Hq * S * D * el, B * Hkv * S * D * el
+        stats = 2 * B * Hq * S * 4
+        return 2 * qb + 2 * kvb + stats, 4 * qb + 4 * kvb + stats
+
+    saved = _flash_counts() + _flash_tc_counts()
+    q, k, v, do = inputs(torch.bfloat16)
+    o, m, d = flash_attention(q, k, v, return_stats=True)
+    po, pm, pd = flash_attention_plain(q, k, v, return_stats=True)
+    err3, held3 = parity_error(o, po)
+    lse3 = _lse_err(m, d, pm, pd)
+    grads = flash_attention_bwd(q, k, v, o, do, m, d)
+    plain = flash_attention_bwd_plain(q, k, v, o, do, m, d)
+    err4, held4 = map(max, zip(*(parity_error(g, w) for g, w in zip(grads,
+                                                                    plain))))
+    tol = tolerance(torch.bfloat16)
+    check(held3 <= tol and lse3 <= F32_ATOL and held4 <= tol,
+          f"full-width shape: K3 o {err3} ({held3}), m + log2(d) {lse3}; "
+          f"K4 {err4} ({held4})")
+    check(bool(torch.equal(m, torch.ceil(m))), "K3: IntMax m not integral")
+    check(bool(torch.equal(m, pm)), "K3: IntMax m differs from plain")
+    ms3 = _time_ms(lambda: flash_attention(q, k, v, return_stats=True),
+                   flush, iters=10)
+    ms4 = _time_ms(lambda: flash_attention_bwd(q, k, v, o, do, m, d), flush,
+                   iters=10)
+    plain3 = _time_ms(lambda: flash_attention_plain(q, k, v,
+                                                    return_stats=True),
+                      flush, iters=3)
+    plain4 = _time_ms(lambda: flash_attention_bwd_plain(q, k, v, o, do, m,
+                                                        d),
+                      flush, iters=3)
+    # the CUDA-core kernels on the same bf16 inputs: K3/K4's earlier route
+    delta = torch.sum(do.float() * o.float(), dim=-1).contiguous()
+    core3 = _time_ms(lambda: ops._forward_cuda_cores(q, k, v, True, True),
+                     flush, iters=5)
+    core4 = _time_ms(lambda: ops._backward_cuda_cores(q, k, v, do, m, d,
+                                                      delta, True),
+                     flush, iters=3)
     lib_err = parity_error(sdpa(q, k, v), o)[0]
-    lib3 = _time_ms(lambda: sdpa(q, k, v), flush, iters=10)
-    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
-    lo = sdpa(ql, kl, vl)
-    lib4 = _time_ms(lambda: torch.autograd.grad(lo, (ql, kl, vl), do,
-                                                retain_graph=True),
-                    flush, iters=10)
-    pairs = S * (S + 1) // 2 * Hq                  # causal, Sq = Sk
-    el = 2                                          # bf16 bytes
-    qb, kvb = B * Hq * S * D * el, B * Hkv * S * D * el
-    stats = 2 * B * Hq * S * 4
-    bytes3 = qb + 2 * kvb + qb + stats              # q, k, v in; o, m, d out
-    bytes4 = 3 * qb + 2 * kvb + stats + B * Hq * S * D * 4 + \
-        2 * B * Hkv * S * D * 4                    # + dq, dk, dv fp32 out
-    print(f"[10] full-width shape, bf16: K3 vs plain max |err| {err3:.3g} "
-          f"(held {held3:.3g} <= {tol}), m + log2(d) {lse3:.3g} <= "
-          f"{F32_ATOL}; K4 vs plain {err4:.3g} (held {held4:.3g} <= {tol}); "
-          f"SDPA vs K3 {lib_err:.3g}")
-    return [
-        _row("flash_attention", "flash_attention.cu",
+    lib3, lib4 = library(q, k, v, do)
+    bytes3, bytes4 = nbytes(2)
+    print(f"[10] full-width shape, bf16, tensor cores: K3 vs plain max "
+          f"|err| {err3:.3g} (held {held3:.3g} <= {tol}), m + log2(d) "
+          f"{lse3:.3g} <= {F32_ATOL}, IntMax m equal to plain; K4 vs plain "
+          f"{err4:.3g} (held {held4:.3g} <= {tol}); SDPA vs K3 {lib_err:.3g}")
+    print(f"[10] K3 {ms3:.4f} ms: {4 * pairs * D / ms3 / 1e9:.1f} TFLOP/s "
+          f"of the function (4·D per visible pair), "
+          f"{8 * pairs * D / ms3 / 1e9:.1f} on the tensor cores (8·D); K4 "
+          f"{ms4:.4f} ms: {10 * pairs * D / ms4 / 1e9:.1f} TFLOP/s of the "
+          f"function (10·D), {26 * pairs * D / ms4 / 1e9:.1f} on the tensor "
+          f"cores (26·D); CUDA-core kernels on the same inputs K3 "
+          f"{core3:.4f} ms, K4 {core4:.4f} ms; SDPA {lib3:.4f} / "
+          f"{lib4:.4f} ms")
+    for name, regs, spill in _ptxas_kernels(
+            build.ptxas_report(),
+            ("flash_attention_tc.cu", "flash_backward_tc.cu")):
+        print(f"[10] ptxas {name}: {regs} registers at launch (consumers "
+              f"raise theirs to 232 by setmaxnreg), {spill}")
+    rows = [
+        _row("flash_attention", "flash_attention_tc.cu",
              "src/repro/kernels/flash_attention/flash_attention.py:99",
              counts[0], 2 * n_layers, err3, ms3, plain3, bytes3,
              4 * pairs * D, lib3),
-        _row("flash_attention_bwd", "flash_backward.cu",
+        _row("flash_attention_bwd", "flash_backward_tc.cu",
              "src/repro/kernels/flash_attention/flash_backward.py:119",
              counts[1], 2 * n_layers, err4, ms4, plain4, bytes4,
-             10 * pairs * D, lib4)]    # s, dP, dV, dK, dQ: 2·D each
+             10 * pairs * D, lib4)]   # s, dP, dV, dK, dQ: 2·D each
+    rows[0]["earlier_ms"], rows[1]["earlier_ms"] = core3, core4
+
+    # the CUDA-core kernels on their own route, f32 (phase 8's training);
+    # their parity is phase 7's (the f32 gate is an absolute 1e-5, which
+    # sums of 4096 rows in another order do not keep)
+    q, k, v, do = inputs(torch.float32)
+    o, m, d = flash_attention(q, k, v, return_stats=True)
+    f3 = _time_ms(lambda: flash_attention(q, k, v, return_stats=True), flush,
+                  iters=5)
+    f4 = _time_ms(lambda: flash_attention_bwd(q, k, v, o, do, m, d), flush,
+                  iters=3)
+    fp3 = _time_ms(lambda: flash_attention_plain(q, k, v, return_stats=True),
+                   flush, iters=2)
+    fp4 = _time_ms(lambda: flash_attention_bwd_plain(q, k, v, o, do, m, d),
+                   flush, iters=2)
+    fl3, fl4 = library(q, k, v, do)
+    # timing and comparison launches do not count
+    flash_attention.launches, flash_attention_bwd.launches = saved[:2]
+    flash_attention.launches_tc, flash_attention_bwd.launches_tc = saved[2:]
+    print(f"[10] CUDA-core kernels, f32 inputs: K3 {f3:.4f} ms, K4 "
+          f"{f4:.4f} ms (plain {fp3:.2f} / {fp4:.2f}, SDPA {fl3:.4f} / "
+          f"{fl4:.4f})")
+    bytes3, bytes4 = nbytes(4)
+    for name, src, line, n, err, ms, pl, nb, flops, lib in (
+            ("flash_attention_f32", "flash_attention.cu",
+             "flash_attention.py:99", f32_counts[0], f32_errs[0], f3, fp3,
+             bytes3, 4 * pairs * D, fl3),
+            ("flash_attention_bwd_f32", "flash_backward.cu",
+             "flash_backward.py:119", f32_counts[1], f32_errs[1], f4, fp4,
+             bytes4, 10 * pairs * D, fl4)):
+        rows.append(_row(name, src,
+                         "src/repro/kernels/flash_attention/" + line, n,
+                         n // 3, err, ms, pl, nb, flops, lib,
+                         peak="float32"))      # phase 8 ran 3 steps
+    return rows
 
 
 def phase_decode_parity(dev):
@@ -2014,9 +2151,11 @@ def phase_single_times(dev, bench_args, launches):
 
 
 def _row(name, src, replaces, launches, per_step, err, ms, plain, nbytes,
-         flops, library=None):
+         flops, library=None, peak="bfloat16"):
+    """One kernel's entry of the ``kernels`` line; ``peak`` names the rate
+    its operations run at (the dtype of its inputs)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    t_ops = flops / PEAK_FLOPS[peak] * 1e3
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{src}", "replaces": replaces,
             "launches": launches, "launches_per_step": per_step,
@@ -2061,12 +2200,13 @@ def main() -> int:
           card_line("clocks.sm,power.draw,temperature.gpu"))
     n_layers = get_config("llama3.2-3b").n_layers
     kernels = phase_kernel_times(dev, main_counts, n_layers)
-    phase_flash_parity(dev)
-    phase_train_parity(dev)
+    flash_errs = phase_flash_parity(dev)
+    f32_counts = phase_train_parity(dev)
     train_counts = phase_train_full_width(dev)
     print("[10] sm clock, power draw, temperature: " +
           card_line("clocks.sm,power.draw,temperature.gpu"))
-    kernels += phase_flash_times(dev, train_counts, n_layers)
+    kernels += phase_flash_times(dev, train_counts, f32_counts, flash_errs,
+                                 n_layers)
     phase_decode_parity(dev)
     phase_static_parity(dev)
     k5_launches = phase_static_full_width(dev)

@@ -54,6 +54,13 @@ _SIGNATURES = {
     # q, k, v, dout, m, d, delta, dq, B, Hq, Hkv, Sq, Sk, D, BQ, dtype,
     # causal, stream
     "smx_flash_bwd_dq": ([_P] * 8 + [_I] * 9 + [_P], _I),
+    # q, k, v, out, m, d, B, Hq, Hkv, Sq, Sk, D, causal, intmax, stream
+    "smx_flash_fwd_tc": ([_P] * 6 + [_I] * 8 + [_P], _I),
+    # q, k, v, dout, m, d, delta, dk, dv, B, Hq, Hkv, Sq, Sk, D, causal,
+    # stream
+    "smx_flash_bwd_dkv_tc": ([_P] * 9 + [_I] * 7 + [_P], _I),
+    # q, k, v, dout, m, d, delta, dq, B, Hq, Hkv, Sq, Sk, D, causal, stream
+    "smx_flash_bwd_dq_tc": ([_P] * 8 + [_I] * 7 + [_P], _I),
     # q, k, v, lengths, acc, m, d, out, B, Hq, Hkv, S, D, lane_rows, n_split,
     # q_dtype, kv_dtype, intmax, stream
     "smx_decode": ([_P] * 8 + [_I] * 10 + [_P], _I),

@@ -1,15 +1,27 @@
 """Dense flash attention: the CUDA kernels' wrappers, the query scaling and
 the trainable op.
 
-``flash_attention`` launches the hand-written Hopper forward kernel
-(``csrc/flash_attention.cu``, K3), which replaces the Pallas TPU kernel
+``flash_attention`` (K3) replaces the Pallas TPU kernel
 ``repro/kernels/flash_attention/flash_attention.py:99``;
-``flash_attention_bwd`` launches the two backward kernels
-(``csrc/flash_backward.cu``, K4: dK/dV, then dQ), which replace
-``repro/kernels/flash_attention/flash_backward.py:119``. Both are bound by
-operations (see the sources' notes). Their launch counts are
-``flash_attention.launches`` (one per forward) and
-``flash_attention_bwd.launches`` (one per kernel, two per backward).
+``flash_attention_bwd`` (K4: a dK/dV kernel, then a dQ kernel) replaces
+``repro/kernels/flash_attention/flash_backward.py:119``. Each launches one
+of two hand-written Hopper routes, by an explicit rule on the dtype and the
+head dim D (``tensor_core_route``):
+
+* bf16 q, k, v with D a multiple of 16, up to 128 — the tensor-core
+  kernels (``csrc/flash_attention_tc.cu``, ``csrc/flash_backward_tc.cu``):
+  TMA-staged tiles, ``wgmma`` with f32 accumulation, and the f32 ``p`` and
+  ``dS`` carried into the tensor cores as three bf16 terms whose sum is
+  exact (``plain.split_bf16``), so they compute the reference's f32
+  function;
+* float32, or bf16 with any other D — the CUDA-core kernels
+  (``csrc/flash_attention.cu``, ``csrc/flash_backward.cu``), all math in
+  fp32: the parity route.
+
+A failed build or launch raises, on either route; nothing falls back.
+Launch counts: ``flash_attention.launches`` (one per forward) and
+``flash_attention_bwd.launches`` (one per kernel, two per backward) count
+both routes; ``.launches_tc`` counts the tensor-core route alone.
 
 ``flash_attention_op`` is the trainable op (a ``torch.autograd.Function``):
 its forward saves ``(q, k, v, o, m, d)`` and its backward recomputes P from
@@ -69,14 +81,36 @@ def _check_cuda(name, q, k, v):
         raise ValueError(f"{name}: head dim {q.shape[3]} > {MAX_HEAD_DIM}")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, intmax: bool = True,
-                    return_stats: bool = False):
-    """K3 on the card. q (B, Hq, Sq, D) pre-scaled; k, v (B, Hkv, Sk, D),
-    float32 or bfloat16 → o (B, Hq, Sq, D) in q's dtype [, m, d
-    (B, Hq, Sq, 1) fp32]. Strided views are made contiguous first."""
-    _check("flash_attention", causal, q, k, v)
-    _check_cuda("flash_attention", q, k, v)
+def tensor_core_route(q: torch.Tensor) -> bool:
+    """The dispatch rule: bf16 with a head dim that is a multiple of 16, up
+    to 128, takes the tensor-core kernels; float32 and every other head dim
+    take the CUDA-core kernels."""
+    D = q.shape[-1]
+    return q.dtype == torch.bfloat16 and D % 16 == 0 and D <= MAX_HEAD_DIM
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous, at a 16-byte aligned address (TMA's requirement)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _forward_tensor_cores(q, k, v, causal, intmax):
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Sk, _ = k.shape
+    out = torch.empty_like(q)
+    m = torch.empty((B, Hq, Sq, 1), dtype=torch.float32, device=q.device)
+    d = torch.empty_like(m)
+    err = build.load_library().smx_flash_fwd_tc(
+        build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out),
+        build.ptr(m), build.ptr(d), B, Hq, Hkv, Sq, Sk, D, int(causal),
+        int(intmax), build.stream_ptr(q.device))
+    build.check(err, "flash_attention (tensor cores)")
+    return out, m, d
+
+
+def _forward_cuda_cores(q, k, v, causal, intmax):
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     B, Hq, Sq, D = q.shape
     _, Hkv, Sk, _ = k.shape
@@ -94,31 +128,54 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q_code(q.dtype), int(causal), int(intmax),
         build.stream_ptr(q.device))
     build.check(err, "flash_attention")
+    return out, m, d
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, intmax: bool = True,
+                    return_stats: bool = False):
+    """K3 on the card. q (B, Hq, Sq, D) pre-scaled; k, v (B, Hkv, Sk, D),
+    float32 or bfloat16 → o (B, Hq, Sq, D) in q's dtype [, m, d
+    (B, Hq, Sq, 1) fp32]. Strided views are made contiguous first."""
+    _check("flash_attention", causal, q, k, v)
+    _check_cuda("flash_attention", q, k, v)
+    if tensor_core_route(q):
+        out, m, d = _forward_tensor_cores(q, k, v, causal, intmax)
+        flash_attention.launches_tc += 1
+    else:
+        out, m, d = _forward_cuda_cores(q, k, v, causal, intmax)
     flash_attention.launches += 1
     return (out, m, d) if return_stats else out
 
 
 flash_attention.launches = 0
+flash_attention.launches_tc = 0
 
 
-def flash_attention_bwd(q, k, v, o, do, m, d, *, causal: bool = True):
-    """K4 on the card: (dq, dk, dv) in the dtypes of (q, k, v) from the
-    forward's o and row statistics m, d (B, Hq, Sq, 1) fp32; dk and dv are
-    summed over each KV head's query heads. ``delta = Σ dO·O`` is a torch
-    op, as in the reference (outside any kernel)."""
-    _check("flash_attention_bwd", causal, q, k, v, o, do, m, d)
-    _check_cuda("flash_attention_bwd", q, k, v)
+def _backward_tensor_cores(q, k, v, do, m, d, delta, causal):
+    q, k, v, do = _aligned(q), _aligned(k), _aligned(v), _aligned(do)
     B, Hq, Sq, D = q.shape
     _, Hkv, Sk, _ = k.shape
-    if o.shape != q.shape or do.shape != q.shape or \
-            m.shape != (B, Hq, Sq, 1) or d.shape != m.shape:
-        raise ValueError("flash_attention_bwd: o/do must match q and m/d "
-                         "be (B, Hq, Sq, 1)")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    do = do.to(q.dtype).contiguous()
-    m = m.float().contiguous()
-    d = d.float().contiguous()
-    delta = torch.sum(do.float() * o.float(), dim=-1).contiguous()
+    dq = torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = build.load_library()
+    stream = build.stream_ptr(q.device)
+    args = (build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(do),
+            build.ptr(m), build.ptr(d), build.ptr(delta))
+    err = lib.smx_flash_bwd_dkv_tc(*args, build.ptr(dk), build.ptr(dv), B,
+                                   Hq, Hkv, Sq, Sk, D, int(causal), stream)
+    build.check(err, "flash_attention_bwd (dK/dV, tensor cores)")
+    err = lib.smx_flash_bwd_dq_tc(*args, build.ptr(dq), B, Hq, Hkv, Sq, Sk,
+                                  D, int(causal), stream)
+    build.check(err, "flash_attention_bwd (dQ, tensor cores)")
+    return dq, dk, dv
+
+
+def _backward_cuda_cores(q, k, v, do, m, d, delta, causal):
+    q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), \
+        do.contiguous()
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Sk, _ = k.shape
     G = Hq // Hkv
     bq = query_tile(G, Sq)
     lib = build.load_library()
@@ -137,15 +194,39 @@ def flash_attention_bwd(q, k, v, o, do, m, d, *, causal: bool = True):
                                 Hkv, Sq, Sk, D, q_code(q.dtype), int(causal),
                                 stream)
     build.check(err, "flash_attention_bwd (dK/dV)")
-    flash_attention_bwd.launches += 1
     err = lib.smx_flash_bwd_dq(*args, build.ptr(dq), B, Hq, Hkv, Sq, Sk, D,
                                bq, q_code(q.dtype), int(causal), stream)
     build.check(err, "flash_attention_bwd (dQ)")
-    flash_attention_bwd.launches += 1
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_attention_bwd(q, k, v, o, do, m, d, *, causal: bool = True):
+    """K4 on the card: (dq, dk, dv) in the dtypes of (q, k, v) from the
+    forward's o and row statistics m, d (B, Hq, Sq, 1) fp32; dk and dv are
+    summed over each KV head's query heads. ``delta = Σ dO·O`` is a torch
+    op, as in the reference (outside any kernel)."""
+    _check("flash_attention_bwd", causal, q, k, v, o, do, m, d)
+    _check_cuda("flash_attention_bwd", q, k, v)
+    B, Hq, Sq, D = q.shape
+    if o.shape != q.shape or do.shape != q.shape or \
+            m.shape != (B, Hq, Sq, 1) or d.shape != m.shape:
+        raise ValueError("flash_attention_bwd: o/do must match q and m/d "
+                         "be (B, Hq, Sq, 1)")
+    do = do.to(q.dtype)
+    m = m.float().contiguous()
+    d = d.float().contiguous()
+    delta = torch.sum(do.float() * o.float(), dim=-1).contiguous()
+    if tensor_core_route(q):
+        grads = _backward_tensor_cores(q, k, v, do, m, d, delta, causal)
+        flash_attention_bwd.launches_tc += 2
+    else:
+        grads = _backward_cuda_cores(q, k, v, do, m, d, delta, causal)
+    flash_attention_bwd.launches += 2
+    return grads
+
+
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_tc = 0
 
 
 def _forward(q, k, v, causal, intmax, block_k):

@@ -12,6 +12,9 @@ reference.
 * ``flash_attention_bwd_plain`` — the backward from the saved ``(m, d)``:
   ``p = 2^(s-m)/max(d, 1e-30)``, ``delta = Σ dO·O``, ``dS = ln2·p·(dP −
   delta)``; dK and dV are summed over each KV head's query heads (GQA).
+* ``split_bf16`` — how the tensor-core kernels carry an f32 operand (``p``
+  and ``dS``) into a bf16 ``wgmma``: as three bf16 terms whose sum is the
+  f32 value.
 """
 from __future__ import annotations
 
@@ -20,6 +23,23 @@ import torch
 from repro_torch.core.numerics import LN_2, NEG_INF
 
 KV_TILE = 64     # the kernels' KV tile
+
+
+def split_bf16(x: torch.Tensor) -> tuple:
+    """f32 ``x`` as three bf16 tensors ``(hi, mid, lo)``, each the bf16
+    rounding of what the earlier ones left (``hi = bf16(x)``, ``mid =
+    bf16(x - hi)``, ``lo = bf16(x - hi - mid)``; every difference is exact
+    in f32), each holding 8 of x's 24 significant bits. ``hi + mid + lo``
+    equals ``x`` exactly for |x| >= 2^-110, and is within 2^-134, half the
+    smallest bf16 subnormal, below; the pair ``hi + mid`` alone is within
+    2^-16·|x| (or that 2^-134). The tensor-core kernels feed ``p`` and
+    ``dS`` to ``wgmma`` as these three terms."""
+    out, rest = [], x.float()
+    for _ in range(3):
+        t = rest.to(torch.bfloat16)
+        out.append(t)
+        rest = rest - t.float()
+    return tuple(out)
 
 
 def _causal_mask(s, k0, Sq, Sk, causal):

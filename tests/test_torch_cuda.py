@@ -12,7 +12,8 @@ bfloat16 outputs within 2e-2 (one bf16 rounding of values of order 1). The
 flash kernels' and the contiguous decode kernel's (K5) bfloat16 outputs
 and gradients are held element by element to their own size
 (``repro_torch.kernels.parity``, as ``chip_smoke.py`` holds them), and the
-flash kernels' fp32 row statistics to 1e-5 in every dtype. The Softermax
+flash kernels' fp32 row statistics to 1e-5 in every dtype, on both of
+their routes (bf16 on the tensor cores, f32 on the CUDA cores). The Softermax
 row kernel (K6) is held by the same rule to its plain version computed in
 float32; the fixed-point kernel (K7) is held EXACTLY (``torch.equal``) to
 its mirror ``softermax_quant_plain`` and within one Q(1,7) step, 2^-7, of
@@ -145,26 +146,22 @@ def test_launch_counters_count_launches_only(cuda_device):
     assert flash_prefill_paged.launches == before + 1
 
 
-# (B, Hkv, G, Sq, Sk, D): Sq = Sk and Sq < Sk, lengths off every tile
+# (B, Hkv, G, Sq, Sk, D): Sq = Sk and Sq < Sk, lengths off every tile; D 16
+# (the reduced configs). bf16 cases take the tensor-core kernels, f32 the
+# CUDA-core kernels.
 FLASH_SHAPES = [(2, 2, 1, 77, 77, 128), (1, 2, 3, 50, 130, 128),
-                (1, 8, 3, 200, 200, 128), (2, 1, 3, 33, 70, 64)]
+                (1, 8, 3, 200, 200, 128), (2, 1, 3, 33, 70, 64),
+                (2, 2, 3, 77, 130, 16)]
 
 
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("intmax", [True, False])
-@pytest.mark.parametrize("shape", FLASH_SHAPES,
-                         ids=lambda s: "x".join(map(str, s)))
-def test_flash_kernels_match_plain(cuda_device, dtype, causal, intmax,
-                                   shape):
+def _flash_parity(device, dt, causal, intmax, shape):
     """K3 (o, m, d) and K4 (dq, dk, dv) against their plain versions."""
     B, Hkv, G, Sq, Sk, D = shape
     rng = np.random.default_rng(Sq + Sk)
-    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
 
     def rand(*shp):
         return torch.from_numpy(rng.normal(size=shp).astype(np.float32)) \
-            .to(cuda_device, dt)
+            .to(device, dt)
 
     q = rand(B, Hkv * G, Sq, D) * D ** -0.5
     k, v = rand(B, Hkv, Sk, D), rand(B, Hkv, Sk, D)
@@ -188,6 +185,27 @@ def test_flash_kernels_match_plain(cuda_device, dtype, causal, intmax,
         assert parity_error(got, want)[1] <= tol
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("intmax", [True, False])
+@pytest.mark.parametrize("shape", FLASH_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_flash_kernels_match_plain(cuda_device, dtype, causal, intmax,
+                                   shape):
+    """K3 and K4 against their plain versions, on both routes."""
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    _flash_parity(cuda_device, dt, causal, intmax, shape)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("intmax", [True, False])
+def test_flash_tensor_core_kernels_long_rows(cuda_device, causal, intmax):
+    """The tensor-core kernels at Sq = Sk = 1000, where no tile edge (64,
+    128, 32 rows) lines up with the end of the rows: bf16, same gate."""
+    _flash_parity(cuda_device, torch.bfloat16, causal, intmax,
+                  (1, 2, 3, 1000, 1000, 128))
+
+
 def test_flash_launch_counters(cuda_device):
     """One count per forward launch and one per backward kernel (two per
     backward); the plain versions launch nothing."""
@@ -200,6 +218,25 @@ def test_flash_launch_counters(cuda_device):
     assert flash_attention.launches == f0 + 1
     assert flash_attention_bwd.launches == b0 + 2
     assert q.grad.shape == q.shape and k.grad.shape == k.shape
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_op_route_counters(cuda_device, dtype):
+    """A bf16 forward and backward (D 64) go through the tensor-core
+    kernels and bump their counters; an f32 one goes through the CUDA-core
+    kernels and leaves them alone. The totals count both routes."""
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn(1, h, 40, 64, device=cuda_device, generator=gen)
+               .to(dt).requires_grad_() for h in (4, 2, 2))
+    before = (flash_attention.launches, flash_attention_bwd.launches,
+              flash_attention.launches_tc, flash_attention_bwd.launches_tc)
+    flash_attention_op(q, k, v).float().sum().backward()
+    after = (flash_attention.launches, flash_attention_bwd.launches,
+             flash_attention.launches_tc, flash_attention_bwd.launches_tc)
+    tc = (1, 2) if dt == torch.bfloat16 else (0, 0)
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 2, *tc)
+    assert q.grad.dtype == dt and k.grad.shape == k.shape
 
 
 def test_engine_sampling_on_the_card(cuda_device):

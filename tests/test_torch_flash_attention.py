@@ -14,6 +14,12 @@ Tolerance ``atol`` 1e-5 in float32: the sums run in another order (tiles of
 two, so the row max ``m`` is compared exactly when IntMax is on. The row
 statistics are compared as ``m + log2(d)``, the log-normalizer, which does
 not depend on where the running max settles.
+
+The numerical contract of the tensor-core kernels (bf16 inputs) is checked
+here too, on the CPU: ``split_bf16`` (how ``p`` and ``dS`` enter a bf16
+``wgmma``) holds its bounds over a numpy-seeded sweep, and a plain
+emulation of the kernels' arithmetic (bf16 inputs, exact products, ``p``
+and ``dS`` as three bf16 terms) holds the JAX kernels in interpret mode.
 """
 import jax
 import jax.numpy as jnp
@@ -31,7 +37,8 @@ from repro.kernels.flash_attention.ref import attention_ref as jax_ref
 from repro_torch.kernels.flash_attention import (
     attention_ref, flash_attention, flash_attention_bwd,
     flash_attention_bwd_plain, flash_attention_op, flash_attention_op_refbwd,
-    flash_attention_plain, scale_queries)
+    flash_attention_plain, scale_queries, split_bf16, tensor_core_route)
+from repro_torch.core.numerics import LN_2, NEG_INF
 
 ATOL = 1e-5
 JAX_BLOCK = 32
@@ -156,3 +163,153 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_bad_geometry():
         flash_attention_bwd(q, k, v, o, do, m, d)
     with pytest.raises(ValueError, match="Sk >= Sq"):
         flash_attention_op(q, k[:, :, :10], v[:, :, :10])
+
+
+def _split_sweep(seed):
+    """f32 magnitudes from 2^-149 (the smallest subnormal: p far below its
+    row's max) to 2^100 (|dS| far above any real one), both signs."""
+    rng = np.random.default_rng(seed)
+    x = (rng.uniform(1, 2, 20000) * 2.0 ** rng.integers(-149, 100, 20000)
+         * rng.choice([-1, 1], 20000)).astype(np.float32)
+    edges = np.array([1.0, 2.0 ** -126, 2.0 ** -118, 2.0 ** -110, 3e38,
+                      np.nextafter(np.float32(1), np.float32(2))],
+                     dtype=np.float32)
+    return torch.from_numpy(np.concatenate([x, edges, -edges]))
+
+
+def test_split_bf16_pair_holds_x_within_2e16():
+    """The first two terms, the pair hi + lo, hold x within 2^-16·|x| (each
+    bf16 rounding keeps 8 bits), or within 2^-134 (half the smallest bf16
+    subnormal) where |x| < 2^-118 and lo falls among bf16's subnormals."""
+    x = _split_sweep(6)
+    hi, lo, _ = split_bf16(x)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    assert torch.equal(hi, x.to(torch.bfloat16))
+    err = (hi.double() + lo.double() - x.double()).abs()
+    bound = torch.maximum(2.0 ** -16 * x.double().abs(),
+                          torch.full_like(err, 2.0 ** -134))
+    assert bool((err <= bound).all())
+    # the pair is not exact: what the kernels' third term is for
+    assert (err > 0).sum().item() > len(x) // 2
+
+
+def test_split_bf16_three_terms_are_exact():
+    """hi + mid + lo = x exactly for |x| >= 2^-110, within 2^-134 below:
+    a product of x with a bf16 value is a sum of three exact products."""
+    x = _split_sweep(7)
+    terms = split_bf16(x)
+    assert len(terms) == 3
+    assert all(t.dtype == torch.bfloat16 for t in terms)
+    err = (sum(t.double() for t in terms) - x.double()).abs()
+    normal = x.double().abs() >= 2.0 ** -110
+    assert bool((err[normal] == 0).all())
+    assert bool((err[~normal] <= 2.0 ** -134).all())
+
+
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.bfloat16, 16, True), (torch.bfloat16, 64, True),
+    (torch.bfloat16, 128, True), (torch.bfloat16, 40, False),
+    (torch.bfloat16, 24, False), (torch.float32, 64, False),
+    (torch.float32, 128, False)])
+def test_tensor_core_route_rule(dtype, D, want):
+    """bf16 with D a multiple of 16 up to 128 takes the tensor-core kernels;
+    f32 and every other D the CUDA-core kernels."""
+    assert tensor_core_route(torch.zeros(1, 1, 1, D, dtype=dtype)) is want
+
+
+def _bf16(*arrays):
+    """float32 tensors holding the arrays rounded to bf16, as the kernels
+    read them."""
+    return [torch.from_numpy(a).to(torch.bfloat16).float() for a in arrays]
+
+
+def _split_products(x, b):
+    """x @ b with f32 x carried as its three bf16 terms (each product of two
+    bf16 values is exact in f32), as the tensor-core kernels compute it."""
+    return sum(t.float() @ b for t in split_bf16(x))
+
+
+def _tc_forward(q, k, v, causal, intmax, block_k=64):
+    """The forward kernel's arithmetic: exact scores, the IntMax recurrence
+    in f32, each tile's p·V from p's bf16 terms."""
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Sk, _ = k.shape
+    qg = q.reshape(B, Hkv, Hq // Hkv, Sq, D)
+    m = torch.full((*qg.shape[:-1], 1), NEG_INF)
+    d = torch.zeros_like(m)
+    acc = torch.zeros_like(qg)
+    rows = torch.arange(Sq)[:, None] + (Sk - Sq)
+    for k0 in range(0, Sk, block_k):
+        kt = k[:, :, None, k0:k0 + block_k]
+        vt = v[:, :, None, k0:k0 + block_k]
+        s = qg @ kt.transpose(-1, -2)
+        if causal:
+            cols = k0 + torch.arange(s.shape[-1])[None]
+            s = torch.where(rows >= cols, s, torch.full_like(s, NEG_INF))
+        mx = torch.amax(s, dim=-1, keepdim=True)
+        m_new = torch.maximum(m, torch.ceil(mx) if intmax else mx)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        d = d * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _split_products(p, vt)
+        m = m_new
+    o = torch.where(d > 0, acc / torch.where(d > 0, d, torch.ones_like(d)),
+                    torch.zeros_like(acc))
+    return (o.reshape(B, Hq, Sq, D), m.reshape(B, Hq, Sq, 1),
+            d.reshape(B, Hq, Sq, 1))
+
+
+def _tc_backward(q, k, v, o, do, m, d, causal):
+    """The backward kernels' arithmetic: exact s and dP, p and dS in f32,
+    every product with p or dS from their bf16 terms."""
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Sk, _ = k.shape
+
+    def grouped(t):
+        return t.reshape(B, Hkv, Hq // Hkv, Sq, t.shape[-1])
+
+    qg, og, dog = grouped(q), grouped(o), grouped(do)
+    kt, vt = k[:, :, None], v[:, :, None]
+    s = qg @ kt.transpose(-1, -2)
+    keep = torch.ones(Sq, Sk, dtype=torch.bool)
+    if causal:
+        keep = torch.arange(Sq)[:, None] + (Sk - Sq) >= torch.arange(Sk)
+    p = torch.where(keep, torch.exp2(s - grouped(m)) /
+                    torch.clamp(grouped(d), min=1e-30), torch.zeros_like(s))
+    delta = torch.sum(dog * og, dim=-1, keepdim=True)
+    ds = torch.where(keep, LN_2 * p * (dog @ vt.transpose(-1, -2) - delta),
+                     torch.zeros_like(s))
+    dq = _split_products(ds, kt)
+    dk = _split_products(ds.transpose(-1, -2), qg).sum(2)
+    dv = _split_products(p.transpose(-1, -2), dog).sum(2)
+    return dq.reshape(B, Hq, Sq, D), dk, dv
+
+
+@pytest.mark.parametrize("intmax", [True, False], ids=["intmax", "base2"])
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_tensor_core_arithmetic_matches_jax_kernels(case, intmax):
+    """Forward and backward as the tensor-core kernels compute them (bf16
+    inputs, exact products, p and dS as three bf16 terms) against the JAX
+    kernels in interpret mode on the same bf16-rounded inputs. The terms
+    sum to p and dS exactly (|x| >= 2^-110; below, within 2^-134, far under
+    any tolerance here), so the only difference is the order of the f32
+    sums: ``ATOL``, as in the float32 tests above."""
+    causal = case[6]
+    q, k, v, do = _bf16(*_inputs(case, 8))
+    jq, jk, jv, jdo = (jnp.asarray(t.numpy()) for t in (q, k, v, do))
+    jo, jm, jd = jax_flash(jq, jk, jv, causal=causal, intmax=intmax,
+                           block_q=JAX_BLOCK, block_k=JAX_BLOCK,
+                           interpret=True, return_stats=True)
+    o, m, d = _tc_forward(q, k, v, causal, intmax)
+    _close(o, jo)
+    _close(m + torch.log2(d), np.asarray(jm) + np.log2(np.asarray(jd)))
+    if intmax:
+        np.testing.assert_array_equal(m.numpy(), np.asarray(jm))
+    jgrads = jax_flash_bwd(jq, jk, jv, jo, jdo, jm, jd, causal=causal,
+                           block_q=JAX_BLOCK, block_k=JAX_BLOCK,
+                           interpret=True)
+    grads = _tc_backward(q, k, v, torch.from_numpy(np.array(jo)), do,
+                         torch.from_numpy(np.array(jm)),
+                         torch.from_numpy(np.array(jd)), causal)
+    for t, j in zip(grads, jgrads):
+        _close(t, j)
