@@ -6,7 +6,8 @@
 Phases, in order; any failure raises and exits non-zero:
 
 1. Device: torch/CUDA versions and the card's name and power limit.
-2. Build: the CUDA kernels from ``src/repro_torch/csrc`` (ptxas report).
+2. Build: the CUDA kernels from ``src/repro_torch/csrc`` (ptxas report;
+   the registers and spills of K5's bulk-copy and K6's register kernels).
 3. Kernel parity at the main path's head geometry (Hq 24, Hkv 8, D 128,
    block 16): each kernel against its plain PyTorch version.
 4. Engine parity at reduced llama3.2-3b in float32: the engine on the card
@@ -42,24 +43,29 @@ Phases, in order; any failure raises and exits non-zero:
 11. Contiguous decode kernel parity: K5 against its plain version, bf16
    and fp32, IntMax on and off, GQA groups 1, 3, 4 and 8, caches of 37 and
    1056 rows, lengths 1, the chunk and pass boundaries +-1 and the whole
-   cache.
+   cache, every case on the bulk-copy route; a bf16 cache of D 36 on the
+   earlier kernel; the route's tile rows equal to the wrapper's mirror.
 12. Static engine parity at reduced llama3.2-3b in float32: the static
    engine on the card (K5) emits the greedy streams of the same engine on
    the CPU and of the paged engine on the card; an int8 cache on the card
    equals the CPU's.
 13. Full-width static serving of llama3.2-3b in bf16 with random weights:
    8 prompts of 1024 tokens, 32 new tokens, with a bf16 and an int8
-   cache; tok/s, ms per decode step, K5 launches and a profile of 5
-   decode steps; the same prompts through the paged engine (one-shot
-   prefill), with a near-tie audit of the first greedy token that differs.
+   cache; tok/s, ms per decode step, K5 launches (every one on the
+   bulk-copy route) and a profile of 5 decode steps; the same prompts
+   through the paged engine (one-shot prefill), with a near-tie audit of
+   the first greedy token that differs.
 14. K5's time at the full-width decode shape beside its bound, its plain
-   version and scaled_dot_product_attention.
+   version, the earlier kernel on the same inputs and
+   scaled_dot_product_attention.
 15. (A) Softermax row kernel (K6) and fixed-point kernel (K7) parity: K6
    against its plain version (float32 math) within ``kernels/parity.py``'s
    rule, f32 and bf16, IntMax on and off; K7 EQUAL (``torch.equal``) to its
    mirror ``softermax_quant_plain`` and within 2^-7 of ``softermax_fixed``;
    masked and pad columns, rows whose max is <= -17, V off the 16-wide
-   slice, and both full-width shapes of phase 20.
+   slice, V one short of, at and one past the register route's cap, 4096
+   and 8192, and both full-width shapes of phase 20; the route each K6
+   case took.
 16. (B) Fixed-point parity at reduced size, float32: the static engine on
    the card (K7 prefill, K5 decode) against the same engine on the CPU and
    the paged engine on the card, a first differing token held to the
@@ -74,8 +80,9 @@ Phases, in order; any failure raises and exits non-zero:
    the prefill by kernel.
 18. (D) Full-width naive float path: the same prompts through the static
    engine with ``attention_impl="naive"``, ``softmax_impl="softermax"`` (K6,
-   28 launches per prefill), audited against ``attention_impl="flash"``
-   (K3), which computes the same function.
+   28 launches per prefill, every one on the register route), audited
+   against ``attention_impl="flash"`` (K3), which computes the same
+   function.
 19. (E) Full-width Softermax-aware finetuning of bert-base (12 layers, d
    768, seq 512, batch 16, fp32 master weights, bf16 compute, remat
    "full"): the Table III workflow at 10 pretrain and 5 finetune steps per
@@ -83,7 +90,8 @@ Phases, in order; any failure raises and exits non-zero:
    ``softmax`` step, K7 launches per step, peak memory.
 20. (F) K6 and K7 times at the full-width prefill shape (rows 8 x 24 x
    1024, V 1024, f32) and the bert shape (rows 16 x 12 x 512, V 512) beside
-   their byte bound, their plain versions and, for K6, ``torch.softmax``
+   their byte bound, their plain versions and, for K6, the two-pass kernel
+   on the same inputs (its earlier route) and ``torch.softmax``
    of the scores already scaled by ln 2 as the library yardstick (the
    factor folds into q in use, so it is not timed; no PyTorch call
    computes K7's function).
@@ -122,6 +130,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -264,7 +273,9 @@ def _reset_counts():
     flash_attention.launches_tc = 0
     flash_attention_bwd.launches_tc = 0
     flash_decode.launches = 0
+    flash_decode.launches_bulk = 0
     softermax_rows.launches = 0
+    softermax_rows.launches_reg = 0
     softermax_quant_rows.launches = 0
 
 
@@ -273,6 +284,13 @@ def _all_counts():
     from repro_torch.kernels.flash_decode import flash_decode
     return (*_counts(), *_flash_counts(), flash_decode.launches,
             *_softermax_counts())
+
+
+def _route_counts():
+    """(K5 on the bulk-copy route, K6 on the register route) launches."""
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.softermax import softermax_rows
+    return flash_decode.launches_bulk, softermax_rows.launches_reg
 
 
 def _softermax_counts():
@@ -878,6 +896,13 @@ def _ptxas_kernels(report, sources):
         for line in sec.splitlines():
             if "Compiling entry function" in line:
                 name = line.split("'")[1]
+                short = re.search(r"(decode_bulk_kernel|softermax_rows_reg_"
+                                  r"kernel)I(13__nv_bfloat16|f)Li(\d+)ELi"
+                                  r"(\d+)E", name)
+                if short:
+                    kern, dt, a, b = short.groups()
+                    name = (f"{kern}<{'bf16' if dt != 'f' else 'f32'}, {a}, "
+                            f"{b}>")
                 for short in ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel",
                               "flash_bwd_dq_tc_kernel"):
                     if short in name:
@@ -1042,9 +1067,18 @@ def phase_decode_parity(dev):
     geometry (Hkv 8, D 128)."""
     import numpy as np
     import torch
-    from repro_torch.kernels.flash_decode import decode_ref, flash_decode
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_decode import (bulk_tile_rows, decode_ref,
+                                                  flash_decode)
     from repro_torch.kernels.parity import parity_error, tolerance
-    saved = flash_decode.launches
+    saved = flash_decode.launches, flash_decode.launches_bulk
+    lib = build.load_library()
+    for D in (4, 8, 36, 40, 64, 128, 256):
+        for elem in (2, 4):
+            if D * elem % 16 == 0:
+                check(lib.smx_decode_bulk_tile(D, elem) ==
+                      bulk_tile_rows(D, elem),
+                      f"K5 tile rows at D {D}, {elem}-byte cache")
     Hkv, D = 8, 128
     worst, n = {}, 0
     for S in (37, 1056):
@@ -1059,6 +1093,7 @@ def phase_decode_parity(dev):
                 dt = getattr(torch, dtn)
                 qd, kd, vd = (t.to(dev, dt) for t in (q, k, v))
                 for intmax in (True, False):
+                    bulk0 = flash_decode.launches_bulk
                     got = flash_decode(qd, kd, vd, ln, intmax=intmax)
                     torch.cuda.synchronize()
                     want = decode_ref(qd, kd, vd, ln, intmax=intmax)
@@ -1066,14 +1101,36 @@ def phase_decode_parity(dev):
                     check(got.dtype == dt and held <= tolerance(dt),
                           f"K5 S={S} G={G} {dtn} intmax={intmax}: max "
                           f"|err| {err}, held {held}")
+                    check(flash_decode.launches_bulk == bulk0 + 1,
+                          f"K5 S={S} G={G} {dtn}: not on the bulk route")
                     w = worst.get(dtn, (0.0, 0.0))
                     worst[dtn] = (max(w[0], err), max(w[1], held))
                     n += 1
-    flash_decode.launches = saved         # comparison launches do not count
+    # off the rule: a bf16 row of 72 bytes takes the earlier kernel
+    rng = np.random.default_rng(36)
+    lens = [1, 31, 129, 300]
+    q36 = _rand(rng, (len(lens), 3 * Hkv, 36), 36 ** -0.5).to(dev,
+                                                               torch.bfloat16)
+    k36, v36 = (_rand(rng, (len(lens), Hkv, 300, 36)).to(dev, torch.bfloat16)
+                for _ in range(2))
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    bulk0 = flash_decode.launches_bulk
+    got = flash_decode(q36, k36, v36, ln)
+    torch.cuda.synchronize()
+    err36, held36 = parity_error(got, decode_ref(q36, k36, v36, ln))
+    check(flash_decode.launches_bulk == bulk0 and
+          held36 <= tolerance(torch.bfloat16),
+          f"K5 bf16 D 36: bulk launches {flash_decode.launches_bulk - bulk0}"
+          f", held {held36}")
+    # comparison launches do not count
+    flash_decode.launches, flash_decode.launches_bulk = saved
     for dtn, (err, held) in sorted(worst.items()):
         print(f"[11] K5 vs plain, {dtn}: max |err| {err:.3g}, checked error "
               f"{held:.3g} <= {tolerance(getattr(torch, dtn))} ({n // 2} "
-              f"cases)")
+              f"cases, all on the bulk-copy route)")
+    print(f"[11] K5 bf16 D 36 (off the rule) on the earlier kernel: max "
+          f"|err| {err36:.3g}, checked {held36:.3g}; tile rows equal to "
+          f"the wrapper's mirror")
 
 
 def phase_static_parity(dev):
@@ -1245,10 +1302,13 @@ def phase_static_full_width(dev):
         res = eng.generate(prompts, max_new)
         wall = time.perf_counter() - t0
         counts = _all_counts()
+        bulk = _route_counts()[0]
         rec.close()
         want = (0, 0, 0, 0, L * (max_new - 1) if kv == "bf16" else 0, 0, 0)
         check(counts == want, f"static {kv}: launches K1-K7 {counts} != "
                               f"{want}")
+        check(bulk == counts[4], f"static {kv}: {bulk} of {counts[4]} K5 "
+                                 "launches on the bulk-copy route")
         check(res.tokens.shape == (B, max_new) and
               ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all(),
               f"static {kv}: tokens {res.tokens}")
@@ -1259,7 +1319,7 @@ def phase_static_full_width(dev):
               f"{rec.prefill_ms:.0f} ms), {np.mean(rec.decode_ms):.2f} ms "
               f"per decode step (n={len(rec.decode_ms)}, synced), K5 "
               f"launches {counts[4]} ({counts[4] / (max_new - 1):.0f} per "
-              f"decode step), peak memory "
+              f"decode step; {bulk} on the bulk-copy route), peak memory "
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         # where a decode step's time goes: 5 profiled steps after a prefill
         lg, cache = eng._prefill(torch.as_tensor(prompts, device=dev))
@@ -1304,7 +1364,8 @@ def phase_decode_times(dev, launches, n_layers):
     import numpy as np
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_decode import (decode_ref, flash_decode,
+    from repro_torch.kernels.flash_decode import (bulk_tile_rows, decode_ref,
+                                                  flash_decode, ops,
                                                   split_lanes)
     from repro_torch.kernels.parity import parity_error, tolerance
     rng = np.random.default_rng(3)
@@ -1315,13 +1376,22 @@ def phase_decode_times(dev, launches, n_layers):
     k = _rand(rng, (B, Hkv, S, D)).to(dev, bf)
     v = _rand(rng, (B, Hkv, S, D)).to(dev, bf)
     ln = torch.full((B,), S, dtype=torch.int32, device=dev)
-    saved = flash_decode.launches
+    saved = flash_decode.launches, flash_decode.launches_bulk
     got = flash_decode(q, k, v, ln)
+    check(flash_decode.launches_bulk == saved[1] + 1,
+          "K5 full-width shape: not on the bulk-copy route")
     err, held = parity_error(got, decode_ref(q, k, v, ln))
     check(held <= tolerance(bf), f"K5 full-width shape: {err} ({held})")
+    # the earlier kernel on the same inputs (its route before the bulk copy)
+    early, _ = ops._launch(q, k, v, ln, True, bulk=False)
+    err_early = parity_error(early, got)[0]
     ms = _time_ms(lambda: flash_decode(q, k, v, ln), flush)
+    earlier = _time_ms(lambda: ops._launch(q, k, v, ln, True, bulk=False),
+                       flush)
     plain = _time_ms(lambda: decode_ref(q, k, v, ln), flush)
-    flash_decode.launches = saved           # timing launches do not count
+    ms2 = _time_ms(lambda: flash_decode(q, k, v, ln), flush)
+    # timing launches do not count
+    flash_decode.launches, flash_decode.launches_bulk = saved
 
     # the library yardstick: SDPA with scale ln 2 is the base-2 softmax of
     # the pre-scaled scores (IntMax changes no result in exact arithmetic;
@@ -1333,13 +1403,19 @@ def phase_decode_times(dev, launches, n_layers):
     lib_err = parity_error(sdpa()[:, :, 0], got)[0]
     lib = _time_ms(sdpa, flush)
     nbytes = 2 * B * Hkv * S * D * 2 + 2 * q.numel() * 2 + B * 4
+    lane_rows, n = split_lanes(B * Hkv, S, bulk_tile_rows(D, 2))
     print(f"[14] full-width decode shape, bf16: K5 vs plain max |err| "
           f"{err:.3g} (held {held:.3g} <= {tolerance(bf)}); SDPA vs K5 "
-          f"{lib_err:.3g}; {split_lanes(B * Hkv, S)[1]} split lanes")
-    return [_row("flash_decode", "flash_decode.cu",
-                 "src/repro/kernels/flash_decode/flash_decode.py:71",
-                 launches, n_layers, err, ms, plain, nbytes,
-                 4 * B * Hq * S * D, lib)]
+          f"{lib_err:.3g}; earlier kernel vs K5 {err_early:.3g}; {n} split "
+          f"lanes of {lane_rows} rows")
+    print(f"[14] K5 bulk-copy route {ms:.4f} / {ms2:.4f} ms, earlier kernel "
+          f"{earlier:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms")
+    row = _row("flash_decode", "flash_decode_bulk.cu",
+               "src/repro/kernels/flash_decode/flash_decode.py:71",
+               launches, n_layers, err, ms, plain, nbytes,
+               4 * B * Hq * S * D, lib)
+    row["earlier_ms"] = earlier
+    return [row]
 
 
 def _score_rows(shape, seed, scale, dev):
@@ -1369,23 +1445,32 @@ def phase_softermax_parity(dev):
     """K6 and K7 against their plain versions on the card."""
     import torch
     from repro_torch.kernels.parity import parity_error, tolerance
-    from repro_torch.kernels.softermax import softermax_rows, \
-        softermax_rows_ref
+    from repro_torch.kernels.softermax import (REG_CAP, softermax_rows,
+                                               softermax_rows_ref)
     from repro_torch.kernels.softermax_quant import (softermax_quant_plain,
                                                      softermax_quant_ref,
                                                      softermax_quant_rows)
-    saved = _softermax_counts()
+    saved = _softermax_counts(), softermax_rows.launches_reg
     shapes = [(4, 128), (8, 1024), (5, 300), (16, 64), (21, 130), (8, 37),
               (2, 16), (12, 200), (3, 1), PREFILL_ROWS, BERT_ROWS]
+    # K6's route boundary and the two-pass kernel's rows (K6 alone)
+    k6_only = [(6, REG_CAP - 1), (6, REG_CAP), (6, REG_CAP + 1), (4, 4096),
+               (4, 8192)]
+    routes = {True: 0, False: 0}
     worst6, worst7, n7 = {}, 0.0, 0
-    for shape in shapes:
+    for shape in shapes + k6_only:
         x = _score_rows(shape, sum(shape), 4.0, dev)
         for dtn in ("float32", "bfloat16"):
             dt = getattr(torch, dtn)
             xd = x.to(dt)
             for intmax in (True, False):
+                reg0 = softermax_rows.launches_reg
                 got = softermax_rows(xd, intmax=intmax)
                 torch.cuda.synchronize()
+                reg = softermax_rows.launches_reg - reg0
+                check(reg == int(shape[1] <= REG_CAP),
+                      f"K6 {shape}: register-route launches {reg}")
+                routes[bool(reg)] += 1
                 want = softermax_rows_ref(xd.float(), intmax).to(dt)
                 err, held = parity_error(got, want)
                 check(held <= tolerance(dt) and
@@ -1395,6 +1480,8 @@ def phase_softermax_parity(dev):
                 w = worst6.get(dtn, (0.0, 0.0))
                 worst6[dtn] = (max(w[0], err), max(w[1], held))
                 del got, want
+            if shape in k6_only:
+                continue
             got = softermax_quant_rows(xd)
             torch.cuda.synchronize()
             check(bool(torch.equal(got, softermax_quant_plain(xd))),
@@ -1408,11 +1495,15 @@ def phase_softermax_parity(dev):
             del got, xd
         del x
         torch.cuda.empty_cache()
-    _set_softermax_counts(saved)       # comparison launches do not count
+    # comparison launches do not count
+    _set_softermax_counts(saved[0])
+    softermax_rows.launches_reg = saved[1]
     for dtn, (err, held) in sorted(worst6.items()):
         print(f"[15] K6 vs plain, {dtn}: max |err| {err:.3g}, checked error "
               f"{held:.3g} <= {tolerance(getattr(torch, dtn))} "
-              f"({2 * len(shapes)} cases)")
+              f"({2 * len(shapes + k6_only)} cases)")
+    print(f"[15] K6 routes: {routes[True]} cases on the register kernel (V "
+          f"<= {REG_CAP}), {routes[False]} on the two-pass kernel")
     print(f"[15] K7 == softermax_quant_plain in all {n7} cases (f32, bf16; "
           f"up to {PREFILL_ROWS[0]} x {PREFILL_ROWS[1]}); max |K7 - "
           f"softermax_fixed| {worst7:.3g} <= 2^-7")
@@ -1584,6 +1675,7 @@ def _static_run(cfg, params, prompts, max_new, dev, label, tag):
     res = eng.generate(prompts, max_new)
     wall = time.perf_counter() - t0
     counts = _all_counts()
+    routes = _route_counts()
     rec.close()
     check(res.tokens.shape == (B, max_new) and
           ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all(),
@@ -1593,14 +1685,15 @@ def _static_run(cfg, params, prompts, max_new, dev, label, tag):
     print(f"[{tag}] {label}: {B} requests x {max_new} tokens, "
           f"{B * max_new / wall:.1f} tok/s ({wall:.2f}s incl. prefill "
           f"{rec.prefill_ms:.1f} ms), {np.mean(rec.decode_ms):.2f} ms per "
-          f"decode step, launches K1-K7 {counts}, peak memory "
+          f"decode step, launches K1-K7 {counts} (K5 on the bulk-copy route "
+          f"{routes[0]}, K6 on the register route {routes[1]}), peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     tokens = torch.as_tensor(prompts, device=dev)
     print(f"[{tag}] {label} " + step_profile(lambda: eng._prefill(tokens), 1,
                                               "prefill"))
     del eng
     torch.cuda.empty_cache()
-    return res.tokens, [lg.cpu() for lg in rec.logits], counts
+    return res.tokens, [lg.cpu() for lg in rec.logits], counts, routes
 
 
 def phase_fixed_full_width(dev):
@@ -1612,7 +1705,7 @@ def phase_fixed_full_width(dev):
     cfg, params, prompts = _full_width_llama(dev)
     cfg = cfg.replace(softmax_impl="softermax_fixed")
     L, max_new = cfg.n_layers, 32
-    tokens, s_logits, counts = _static_run(
+    tokens, s_logits, counts, _ = _static_run(
         cfg, params, prompts, max_new, dev, "static softermax_fixed", 17)
     check(counts == (0, 0, 0, 0, L * (max_new - 1), 0, L),
           f"static softermax_fixed: launches K1-K7 {counts}")
@@ -1646,12 +1739,15 @@ def phase_naive_full_width(dev):
     cfg, params, prompts = _full_width_llama(dev)
     L, max_new = cfg.n_layers, 32
     naive = cfg.replace(attention_impl="naive", softmax_impl="softermax")
-    tokens, n_logits, counts = _static_run(
+    tokens, n_logits, counts, routes = _static_run(
         naive, params, prompts, max_new, dev, "static naive softermax", 18)
     check(counts == (0, 0, 0, 0, L * (max_new - 1), L, 0),
           f"static naive: launches K1-K7 {counts}")
+    check(routes == (counts[4], counts[5]),
+          f"static naive: K5 / K6 launches {counts[4:6]}, on the bulk-copy "
+          f"and register routes {routes}")
     flash = cfg.replace(attention_impl="flash", softmax_impl="softermax")
-    f_tokens, f_logits, f_counts = _static_run(
+    f_tokens, f_logits, f_counts, _ = _static_run(
         flash, params, prompts, max_new, dev, "static flash softermax", 18)
     check(f_counts == (0, 0, L, 0, L * (max_new - 1), 0, 0),
           f"static flash: launches K1-K7 {f_counts}")
@@ -1755,22 +1851,29 @@ def phase_softermax_times(dev, k6_launches, k7_launches, n_layers):
     """K6 and K7 at the full-width prefill shape and the bert shape, f32."""
     import torch
     from repro_torch.kernels.parity import parity_error
-    from repro_torch.kernels.softermax import (softermax_rows,
+    from repro_torch.kernels.softermax import (ops, softermax_rows,
                                                softermax_rows_ref)
     from repro_torch.kernels.softermax_quant import (softermax_quant_plain,
                                                      softermax_quant_rows)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
-    saved = _softermax_counts()
+    saved = _softermax_counts(), softermax_rows.launches_reg
     rows = {}
     for label, shape in (("prefill", PREFILL_ROWS), ("bert", BERT_ROWS)):
         x = torch.randn(shape, device=dev, generator=torch.Generator(
             device=dev).manual_seed(4)) * 3
         x[:, shape[1] // 2:][::2] = -1e9      # causal-like masked halves
         nbytes = 2 * x.numel() * 4            # read once, written once
+        reg0 = softermax_rows.launches_reg
         got = softermax_rows(x)
+        check(softermax_rows.launches_reg == reg0 + 1,
+              f"K6 {shape}: not on the register route")
         err6 = parity_error(got, softermax_rows_ref(x))[0]
+        # the two-pass kernel on the same inputs (its route before)
+        err_two = parity_error(ops._launch(x, True, reg=False)[0], got)[0]
         ms6 = _time_ms(lambda: softermax_rows(x), flush)
+        two6 = _time_ms(lambda: ops._launch(x, True, reg=False), flush)
         plain6 = _time_ms(lambda: softermax_rows_ref(x), flush, iters=5)
+        ms6b = _time_ms(lambda: softermax_rows(x), flush)
         # the library's row softmax on scores already in base 2 (the path
         # folds ln 2 into q): the factor costs no pass of its own in use
         xs = x * math.log(2)
@@ -1782,28 +1885,32 @@ def phase_softermax_times(dev, k6_launches, k7_launches, n_layers):
         ms7 = _time_ms(lambda: softermax_quant_rows(x), flush)
         plain7 = _time_ms(lambda: softermax_quant_plain(x), flush, iters=2)
         rows[label] = (
-            _row("softermax_rows", "softermax.cu",
-                 "src/repro/kernels/softermax/softermax.py:81", k6_launches,
-                 n_layers, err6, ms6, plain6, nbytes, 5 * x.numel(), lib6),
+            dict(_row("softermax_rows", "softermax.cu",
+                      "src/repro/kernels/softermax/softermax.py:81",
+                      k6_launches, n_layers, err6, ms6, plain6, nbytes,
+                      5 * x.numel(), lib6), earlier_ms=two6),
             _row("softermax_quant_rows", "softermax_quant.cu",
                  "src/repro/kernels/softermax_quant/softermax_quant.py:67",
                  k7_launches, n_layers, err7, ms7, plain7, nbytes,
                  60 * x.numel()))
-        print(f"[20] {label} shape {shape}: K6 {ms6:.4f} ms (bound "
-              f"{rows[label][0]['bound_ms']:.4f}, plain {plain6:.4f}, "
-              f"torch.softmax {lib6:.4f}); K7 {ms7:.4f} ms (bound "
-              f"{rows[label][1]['bound_ms']:.4f}, plain {plain7:.4f}, no "
-              f"library call)")
+        print(f"[20] {label} shape {shape}: K6 register route {ms6:.4f} / "
+              f"{ms6b:.4f} ms (bound {rows[label][0]['bound_ms']:.4f}, "
+              f"two-pass kernel {two6:.4f} (vs K6 {err_two:.3g}), plain "
+              f"{plain6:.4f}, torch.softmax {lib6:.4f}); K7 {ms7:.4f} ms "
+              f"(bound {rows[label][1]['bound_ms']:.4f}, plain "
+              f"{plain7:.4f}, no library call)")
         del x, got
         torch.cuda.empty_cache()
-    _set_softermax_counts(saved)          # timing launches do not count
+    # timing launches do not count
+    _set_softermax_counts(saved[0])
+    softermax_rows.launches_reg = saved[1]
     out = []
     for i in (0, 1):
         row = dict(rows["prefill"][i])
         bert = rows["bert"][i]
         row["bert_shape"] = {k: bert[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "max_abs_err")}
+            "max_abs_err", "earlier_ms") if k in bert}
         out.append(row)
     return out
 
@@ -2191,6 +2298,9 @@ def main() -> int:
         if "entry function" in line or "registers" in line or \
                 "spill" in line:
             print("[2] " + line.strip())
+    for name, regs, spill in _ptxas_kernels(
+            build.ptxas_report(), ("flash_decode_bulk.cu", "softermax.cu")):
+        print(f"[2] ptxas {name}: {regs} registers, {spill}")
 
     phase_kernel_parity(dev)
     phase_engine_parity(dev)
@@ -2231,6 +2341,8 @@ def main() -> int:
         k["card"] = card
         lib = "" if k["library_ms"] is None else \
             f", library {k['library_ms']:.4f} ms"
+        if "earlier_ms" in k:
+            lib += f", earlier route {k['earlier_ms']:.4f} ms"
         print(f"[kernels] {k['name']}: {k['ms']:.4f} ms (plain "
               f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms by "
               f"{k['bound_by']}{lib}), {card}")

@@ -1,7 +1,8 @@
 // Hopper building blocks of the tensor-core attention kernels
-// (flash_attention_tc.cu, flash_backward_tc.cu): TMA tile loads completed on
-// mbarriers, wgmma shared-memory descriptors, and the wgmma instructions the
-// kernels issue, with their operand lists spelled out.
+// (flash_attention_tc.cu, flash_backward_tc.cu) and the bulk-copy decode
+// kernel (flash_decode_bulk.cu): TMA tile loads and 1-D bulk copies
+// completed on mbarriers, wgmma shared-memory descriptors, and the wgmma
+// instructions the kernels issue, with their operand lists spelled out.
 //
 // Tiles are bf16, staged by TMA with CU_TENSOR_MAP_SWIZZLE_128B in panels
 // of 64 columns (128 bytes a row, rows contiguous) whose bases are 1024-byte
@@ -84,6 +85,22 @@ __device__ __forceinline__ void hop_tma_load(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%2, %3, %4}], [%5];"
       :: "r"(hop_smem(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(col), "r"(row), "r"(head), "r"(hop_smem(bar))
+      : "memory");
+}
+
+// A 1-D bulk copy of `bytes` contiguous bytes (a multiple of 16, both ends
+// 16-byte aligned) from device memory into shared memory, no tensor map;
+// completes `bytes` of the barrier's transaction count. The lines are
+// marked evict-first in L2: a stream read once.
+__device__ __forceinline__ void hop_bulk_load(void* dst, const void* src,
+                                              uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "{\n.reg .b64 pol;\n"
+      "createpolicy.fractional.L2::evict_first.b64 pol, 1.0;\n"
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], pol;\n}"
+      :: "r"(hop_smem(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+         "r"(bytes), "r"(hop_smem(bar))
       : "memory");
 }
 

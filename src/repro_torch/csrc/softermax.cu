@@ -5,12 +5,30 @@
 // Replaces the Pallas TPU kernel softermax_rows
 // (src/repro/kernels/softermax/softermax.py:81; bodies _unnormed_kernel
 // and _normalize_kernel): fp32 math, f32 or bf16 rows in, the same dtype
-// out.
+// out. Two routes, chosen by the row length (kernels/softermax/ops.py::
+// register_route): rows of up to REG_CAP values take the register kernel,
+// longer rows the two-pass kernel.
 //
 // Bound on this card: bytes. A row is read and written once with a few
-// operations per element (a ceil, a max, an exp2, a divide), far under the
-// H100's compute/bandwidth ridge. The design spends its effort on reading
-// and writing each row once, wide and coalesced:
+// operations per element (a ceil, a max, an exp2, a multiply), far under
+// the H100's compute/bandwidth ridge.
+//
+// The register kernel (softermax_rows_reg_kernel) reads each row once:
+//  * one warp owns one row and holds it in registers, N loads of 16 bytes a
+//    lane (or N single values where the row is not a multiple of 16 bytes
+//    or not 16-byte aligned), every load issued before any is used;
+//  * the lane max, then a warp butterfly; under IntMax the ceil comes after
+//    that reduce; one exp2(x - m) per element, kept in registers, and d
+//    summed across the warp;
+//  * the Normalization Unit multiplies by r = 1/d, rounded once per row
+//    (__frcp_rn: within one ulp of the divide), d == 0 -> 0;
+//  * slots past the row's end are left out of the max and of d (never
+//    filled with NEG_INF: on a fully masked row every real entry is
+//    NEG_INF, and a padding NEG_INF would enter d as 2^0 = 1 and spoil the
+//    uniform 1/V).
+//
+// The two-pass kernel (softermax_rows_kernel) takes rows of any length,
+// read wide and coalesced:
 //  * one warp owns one row; its lanes walk the row in 16-byte loads,
 //    neighbouring lanes on neighbouring addresses, and each lane keeps its
 //    own running state (m, d): per load, m_new = max(m, ceil(max of the
@@ -26,11 +44,14 @@
 //    intermediate goes to device memory;
 //  * a fully masked row (every entry NEG_INF) gives the uniform row, as the
 //    closed form does (m stays NEG_INF, every 2^(x - m) is 1).
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int WARPS = 8;           // rows per block: one warp each
+constexpr int REG_CAP = 2048;      // longest row the register kernel holds
 
 // Fold one group of n values (already fp32) into a lane's running state.
 __device__ __forceinline__ void smx_row_update(float& m, float& d,
@@ -112,6 +133,92 @@ __global__ void __launch_bounds__(WARPS * 32)
   }
 }
 
+// W: values a load takes (16 bytes' worth, or 1); N: loads a lane holds,
+// so N * W * 32 >= V.
+template <typename T, int W, int N>
+__global__ void __launch_bounds__(WARPS * 32)
+    softermax_rows_reg_kernel(const T* __restrict__ x, T* __restrict__ out,
+                              int rows, int V, int intmax) {
+  using Load = typename std::conditional<W == 1, T, uint4>::type;
+  const int lane = threadIdx.x % 32;
+  const long long row =
+      static_cast<long long>(blockIdx.x) * WARPS + threadIdx.x / 32;
+  if (row >= rows) return;
+  const Load* xr = reinterpret_cast<const Load*>(x + row * V);
+  Load* orow = reinterpret_cast<Load*>(out + row * V);
+  const int n_loads = V / W;                 // W divides V on this route
+
+  Load raw[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    raw[j] = j * 32 + lane < n_loads ? xr[j * 32 + lane] : Load();
+  float e[N][W];
+  float mx = -INFINITY;                      // padding slots stay out
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const T* v = reinterpret_cast<const T*>(&raw[j]);
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      e[j][i] = smx_to_f32(v[i]);
+      if (j * 32 + lane < n_loads) mx = fmaxf(mx, e[j][i]);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  if (intmax) mx = ceilf(mx);
+  float d = 0.f;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      e[j][i] = j * 32 + lane < n_loads ? exp2f(e[j][i] - mx) : 0.f;
+      d += e[j][i];
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    d += __shfl_xor_sync(0xffffffffu, d, off);
+  const float r = d > 0.f ? __frcp_rn(d) : 0.f;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    if (j * 32 + lane < n_loads) {
+      Load res;
+      T* o = reinterpret_cast<T*>(&res);
+#pragma unroll
+      for (int i = 0; i < W; ++i) o[i] = smx_from_f32<T>(e[j][i] * r);
+      orow[j * 32 + lane] = res;
+    }
+  }
+}
+
+// The smallest N of 1, 2, 4, ... that holds n loads a lane, up to the cap.
+template <typename T, int W, int N>
+cudaError_t launch_reg_n(const void* x, void* out, int rows, int V, int n,
+                         int intmax, cudaStream_t st) {
+  if constexpr (N * W * 32 < REG_CAP) {
+    if (n > N)
+      return launch_reg_n<T, W, 2 * N>(x, out, rows, V, n, intmax, st);
+  }
+  const int blocks = (rows + WARPS - 1) / WARPS;
+  softermax_rows_reg_kernel<T, W, N><<<blocks, WARPS * 32, 0, st>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), rows, V, intmax);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_reg(const void* x, void* out, int rows, int V,
+                       int intmax, cudaStream_t st) {
+  constexpr int VEC = 16 / sizeof(T);
+  const bool vec = V % VEC == 0 &&
+                   (reinterpret_cast<uintptr_t>(x) |
+                    reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  if (vec)
+    return launch_reg_n<T, VEC, 1>(x, out, rows, V, (V / VEC + 31) / 32,
+                                   intmax, st);
+  return launch_reg_n<T, 1, 1>(x, out, rows, V, (V + 31) / 32, intmax, st);
+}
+
 template <typename T>
 cudaError_t launch_rows(const void* x, void* out, int rows, int V,
                         int intmax, cudaStream_t st) {
@@ -132,5 +239,19 @@ extern "C" int smx_softermax_rows(const void* x, void* out, int rows, int V,
   if (dtype == SMX_F32) return launch_rows<float>(x, out, rows, V, intmax, st);
   if (dtype == SMX_BF16)
     return launch_rows<__nv_bfloat16>(x, out, rows, V, intmax, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The register route (rows of V <= REG_CAP). Plain C entry point, as
+// smx_softermax_rows.
+extern "C" int smx_softermax_rows_reg(const void* x, void* out, int rows,
+                                      int V, int dtype, int intmax,
+                                      void* stream) {
+  if (rows <= 0 || V <= 0 || V > REG_CAP)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == SMX_F32) return launch_reg<float>(x, out, rows, V, intmax, st);
+  if (dtype == SMX_BF16)
+    return launch_reg<__nv_bfloat16>(x, out, rows, V, intmax, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -64,13 +64,18 @@ _SIGNATURES = {
     # q, k, v, lengths, acc, m, d, out, B, Hq, Hkv, S, D, lane_rows, n_split,
     # q_dtype, kv_dtype, intmax, stream
     "smx_decode": ([_P] * 8 + [_I] * 10 + [_P], _I),
+    # q, k, v, lengths, acc, m, d, tickets, out, B, Hq, Hkv, S, D,
+    # lane_rows, n_split, q_dtype, kv_dtype, intmax, stream
+    "smx_decode_bulk": ([_P] * 9 + [_I] * 10 + [_P], _I),
     # x, out, rows, V, dtype, intmax, stream
     "smx_softermax_rows": ([_P] * 2 + [_I] * 4 + [_P], _I),
+    "smx_softermax_rows_reg": ([_P] * 2 + [_I] * 4 + [_P], _I),
     # x, out, rows, V, dtype, stream
     "smx_softermax_quant": ([_P] * 2 + [_I] * 3 + [_P], _I),
     "smx_paged_decode_smem": ([_I] * 5, ctypes.c_longlong),
     "smx_paged_prefill_smem": ([_I] * 4, ctypes.c_longlong),
     "smx_decode_smem": ([_I] * 2, ctypes.c_longlong),
+    "smx_decode_bulk_tile": ([_I] * 2, _I),
     "smx_flash_fwd_smem": ([_I] * 3, ctypes.c_longlong),
     "smx_flash_bwd_dkv_smem": ([_I], ctypes.c_longlong),
     "smx_flash_bwd_dq_smem": ([_I] * 3, ctypes.c_longlong),

@@ -1,12 +1,18 @@
 """Row-wise Softermax (K6): the CUDA kernel's wrapper, its trainable op
 and the dispatcher.
 
-``softermax_rows`` launches the hand-written Hopper kernel
-(``csrc/softermax.cu``), which replaces the Pallas TPU kernel
-``repro/kernels/softermax/softermax.py:81``. It is bound by bytes (see the
-source's note). Its launch count is ``softermax_rows.launches``. The TPU
-wrapper's ``block_rows``, ``block_v`` and ``interpret`` are TPU tiling and
-do not carry over.
+``softermax_rows`` replaces the Pallas TPU kernel
+``repro/kernels/softermax/softermax.py:81`` with one of two hand-written
+Hopper kernels in ``csrc/softermax.cu``, by an explicit rule on the row
+length (``register_route``): rows of up to ``REG_CAP`` values take the
+register kernel, which reads each row once into registers and writes it
+once; longer rows take the two-pass kernel, which re-reads the row for its
+normalize pass. Both are bound by bytes (see the source's note). A failed
+build or launch raises, on either route; nothing falls back. Launch
+counts: ``softermax_rows.launches`` counts both routes,
+``.launches_reg`` the register route alone. The TPU wrapper's
+``block_rows``, ``block_v`` and ``interpret`` are TPU tiling and do not
+carry over.
 
 ``softermax_op`` is the dispatcher over the last axis of any shape: a CUDA
 tensor goes to the kernel — through a ``torch.autograd.Function`` whose
@@ -26,9 +32,19 @@ from repro_torch.kernels.dtypes import row_code
 from repro_torch.kernels.softermax.ref import softermax_rows_ref
 
 
-def softermax_rows(x: torch.Tensor, *, intmax: bool = True) -> torch.Tensor:
-    """K6 on the card: x (rows, V) float32 or bfloat16 → the base-2
-    softmax of each row (IntMax on or off) in x's dtype."""
+REG_CAP = 2048     # longest row the register kernel holds (csrc REG_CAP)
+
+
+def register_route(x: torch.Tensor) -> bool:
+    """THE dispatch rule: rows (the last axis) of up to ``REG_CAP`` values
+    take the register kernel, longer rows the two-pass kernel."""
+    return x.shape[-1] <= REG_CAP
+
+
+def _launch(x: torch.Tensor, intmax: bool, reg=None):
+    """One launch of the route ``register_route`` picks, or of the one
+    ``reg`` names (the register or the two-pass kernel); returns the output
+    and whether the register kernel ran."""
     if not x.is_cuda:
         raise ValueError("softermax_rows runs on CUDA tensors only")
     if x.dim() != 2:
@@ -38,17 +54,32 @@ def softermax_rows(x: torch.Tensor, *, intmax: bool = True) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty_like(x)
     if x.numel() == 0:
-        return out
+        return out, None
+    if reg is None:
+        reg = register_route(x)
     lib = build.load_library()
-    err = lib.smx_softermax_rows(build.ptr(x), build.ptr(out), x.shape[0],
-                                 x.shape[1], code, int(intmax),
-                                 build.stream_ptr(x.device))
-    build.check(err, "softermax_rows")
+    fn = lib.smx_softermax_rows_reg if reg else lib.smx_softermax_rows
+    err = fn(build.ptr(x), build.ptr(out), x.shape[0], x.shape[1], code,
+             int(intmax), build.stream_ptr(x.device))
+    build.check(err, "softermax_rows (registers)" if reg else
+                "softermax_rows")
+    return out, reg
+
+
+def softermax_rows(x: torch.Tensor, *, intmax: bool = True) -> torch.Tensor:
+    """K6 on the card: x (rows, V) float32 or bfloat16 → the base-2
+    softmax of each row (IntMax on or off) in x's dtype."""
+    out, reg = _launch(x, intmax)
+    if reg is None:                           # nothing to launch
+        return out
+    if reg:
+        softermax_rows.launches_reg += 1
     softermax_rows.launches += 1
     return out
 
 
 softermax_rows.launches = 0
+softermax_rows.launches_reg = 0
 
 
 class _SoftermaxRows(torch.autograd.Function):

@@ -17,7 +17,10 @@ their routes (bf16 on the tensor cores, f32 on the CUDA cores). The Softermax
 row kernel (K6) is held by the same rule to its plain version computed in
 float32; the fixed-point kernel (K7) is held EXACTLY (``torch.equal``) to
 its mirror ``softermax_quant_plain`` and within one Q(1,7) step, 2^-7, of
-``softermax_fixed`` (``kernels/softermax_quant/ref.py``). The per-head
+``softermax_fixed`` (``kernels/softermax_quant/ref.py``). K5 and K6 are
+held so on both of their routes (the bulk-copy and the earlier kernel; the
+register and the two-pass kernel), and each route's launch counter is
+checked. The per-head
 paged decode kernel (K8) is held by the same rule (float32 outputs 1e-5,
 bfloat16 outputs 1e-2 of each element's size) to its plain version
 ``paged_decode_single_plain`` and to K1 on the same inputs.
@@ -29,7 +32,8 @@ import torch
 from repro_torch.kernels.flash_attention import (
     flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
     flash_attention_op, flash_attention_plain)
-from repro_torch.kernels.flash_decode import decode_ref, flash_decode
+from repro_torch.kernels.flash_decode import (bulk_tile_rows, decode_ref,
+                                              flash_decode, split_lanes)
 from repro_torch.kernels.flash_decode_paged import (
     flash_decode_paged, flash_decode_paged_single,
     flash_decode_paged_single_op, paged_decode_ref,
@@ -37,8 +41,8 @@ from repro_torch.kernels.flash_decode_paged import (
 from repro_torch.kernels.flash_prefill_paged import (flash_prefill_paged,
                                                      paged_prefill_ref)
 from repro_torch.kernels.parity import F32_ATOL, parity_error, tolerance
-from repro_torch.kernels.softermax import (softermax_op, softermax_rows,
-                                           softermax_rows_ref)
+from repro_torch.kernels.softermax import (REG_CAP, softermax_op,
+                                           softermax_rows, softermax_rows_ref)
 from repro_torch.kernels.softermax_quant import (softermax_quant_plain,
                                                  softermax_quant_ref,
                                                  softermax_quant_rows)
@@ -304,6 +308,78 @@ def test_contiguous_decode_kernel_counts_and_empty_rows(cuda_device):
     assert parity_error(out[1], decode_ref(q, k, v, ln)[1])[1] <= F32_ATOL
 
 
+_DT = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+@pytest.mark.parametrize("intmax", [True, False])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 3, 4, 8])
+@pytest.mark.parametrize("dtypes", ["bf16/bf16", "f32/f32", "bf16/f32",
+                                    "f32/bf16"])
+def test_decode_bulk_route_matches_plain(cuda_device, dtypes, G, D, intmax):
+    """K5's bulk-copy route against ``decode_ref`` (q/cache dtypes): lengths
+    0, 1, a tile's rows +-1, past the four-stage ring and the whole cache,
+    in caches of under one tile, two tiles and 5 tiles + 3 rows, at 1, 8 and
+    40 KV heads: 1 to 6 split lanes, and one lane of 6 tiles, where the
+    ring wraps. Every launch takes the route; a row of length 0 is 0."""
+    qdt, kdt = (_DT[n] for n in dtypes.split("/"))
+    tile = bulk_tile_rows(D, torch.tensor([], dtype=kdt).element_size())
+    splits = set()
+    for S in (tile - 1, 2 * tile, 5 * tile + 3):
+        lens = [n for n in (0, 1, tile - 1, tile, tile + 1, 4 * tile + 1, S)
+                if n <= S]
+        B = len(lens)
+        for Hkv in (1, 8, 40):
+            rng = np.random.default_rng(S + Hkv + G + D)
+
+            def rand(*shp, scale=1.0, dt=kdt):
+                return torch.from_numpy((rng.normal(size=shp) * scale)
+                                        .astype(np.float32)).to(cuda_device,
+                                                                dt)
+
+            q = rand(B, G * Hkv, D, scale=D ** -0.5, dt=qdt)
+            k, v = rand(B, Hkv, S, D), rand(B, Hkv, S, D)
+            ln = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+            before = (flash_decode.launches, flash_decode.launches_bulk)
+            got = flash_decode(q, k, v, ln, intmax=intmax)
+            torch.cuda.synchronize()
+            assert (flash_decode.launches - before[0],
+                    flash_decode.launches_bulk - before[1]) == (1, 1)
+            want = decode_ref(q, k, v, ln, intmax=intmax)
+            live = ln > 0
+            assert got.dtype == qdt
+            assert parity_error(got[live], want[live])[1] <= tolerance(qdt)
+            assert torch.all(got[~live] == 0)
+            splits.add(split_lanes(B * Hkv, S, tile)[1])
+    assert min(splits) == 1 and max(splits) >= 5
+
+
+@pytest.mark.parametrize("case", ["bf16 D36", "f32 K off 16 bytes"])
+def test_decode_earlier_route_off_the_rule(cuda_device, case):
+    """Geometries off ``bulk_route`` take the earlier kernel (the bulk
+    counter stays) and hold its parity: a bf16 row of 72 bytes, and a K
+    4 bytes off a 16-byte boundary."""
+    rng = np.random.default_rng(7)
+    B, Hkv, G, S = 5, 2, 3, 300
+    D, dt, shift = (36, torch.bfloat16, 0) if case == "bf16 D36" else \
+        (128, torch.float32, 1)
+    lens = [1, 31, 129, 200, S]
+    q = torch.from_numpy(rng.normal(size=(B, G * Hkv, D)).astype(np.float32)
+                         / np.sqrt(D)).to(cuda_device, dt)
+    n = B * Hkv * S * D
+    flat = torch.from_numpy(rng.normal(size=2 * n + 8).astype(np.float32)) \
+        .to(cuda_device, dt)
+    k = flat[shift:shift + n].view(B, Hkv, S, D)
+    v = flat[n + 4:2 * n + 4].view(B, Hkv, S, D)
+    ln = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    before = (flash_decode.launches, flash_decode.launches_bulk)
+    got = flash_decode(q, k, v, ln)
+    torch.cuda.synchronize()
+    assert (flash_decode.launches - before[0],
+            flash_decode.launches_bulk - before[1]) == (1, 0)
+    assert parity_error(got, decode_ref(q, k, v, ln))[1] <= tolerance(dt)
+
+
 def test_static_engine_on_the_card(cuda_device):
     """Reduced llama3.2-3b in float32: the static engine on the card (K5)
     emits the greedy streams of the same engine on the CPU and of the
@@ -365,6 +441,30 @@ def test_softermax_row_kernel_matches_plain(cuda_device, shape, intmax,
                               intmax).to(dt)
     assert got.dtype == dt and torch.isfinite(got).all()
     assert parity_error(got, want)[1] <= tolerance(dt)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("intmax", [True, False])
+@pytest.mark.parametrize("V", [1, 7, 512, 1024, REG_CAP - 1, REG_CAP,
+                               REG_CAP + 1, 4096, 8192])
+def test_softermax_row_routes(cuda_device, V, intmax, dtype):
+    """K6's two routes: rows of up to REG_CAP values on the register
+    kernel, longer rows on the two-pass kernel (the register counter
+    stays), each held to the plain version, with fully masked, half-masked,
+    -30-shifted and partly masked rows (``_rows``); a fully masked row is
+    uniform, 1/V."""
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    x = _rows((6, V), V + 3, 4.0).to(cuda_device, dt)
+    before = (softermax_rows.launches, softermax_rows.launches_reg)
+    got = softermax_rows(x, intmax=intmax)
+    torch.cuda.synchronize()
+    assert (softermax_rows.launches - before[0],
+            softermax_rows.launches_reg - before[1]) == (1, int(V <= REG_CAP))
+    want = softermax_rows_ref(x.float(), intmax).to(dt)
+    assert got.dtype == dt and torch.isfinite(got).all()
+    assert parity_error(got, want)[1] <= tolerance(dt)
+    uniform = torch.full((V,), 1 / V, device=cuda_device)
+    assert parity_error(got[0], uniform.to(dt))[1] <= tolerance(dt)
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])

@@ -3,7 +3,11 @@ against the JAX package.
 
 * ``decode_ref`` (K5's plain version) against the JAX Pallas kernel
   ``flash_decode`` in interpret mode and the JAX ``decode_ref``: odd cache
-  lengths S, lengths 1 and S, GQA groups 1, 2 and 4, IntMax on and off.
+  lengths S, lengths 1 and S, GQA groups 1, 2 and 4, IntMax on and off;
+  and at the lengths around a tile of K5's bulk-copy route.
+* K5's dispatch rule ``bulk_route`` (dtype pairs, row bytes, head dim,
+  group, K and V alignment), the route's tile rows ``bulk_tile_rows`` and
+  the split geometry ``split_lanes``, as plain functions.
 * ``attention_decode`` against the JAX ``attention_decode``, branch by
   branch: the linear cache with ``interpret_kernels`` off (``_masked_decode``)
   and on (the kernel's plain version), a sliding window, a ring buffer, an
@@ -38,7 +42,8 @@ from repro.models.registry import get_config as jax_get_config
 from repro.models.registry import model_fns as jax_model_fns
 from repro.models.registry import reduce_config as jax_reduce_config
 from repro_torch.bridge import params_from_numpy
-from repro_torch.kernels.flash_decode import (decode_ref, flash_decode_op,
+from repro_torch.kernels.flash_decode import (bulk_route, bulk_tile_rows,
+                                              decode_ref, flash_decode_op,
                                               split_lanes)
 from repro_torch.models import attention as tattn
 from repro_torch.models import lm as tlm
@@ -96,6 +101,100 @@ def test_split_lanes_cover_the_cache(pairs, S):
     lane_rows, n = split_lanes(pairs, S)
     assert lane_rows % 128 == 0 and n >= 1
     assert n * lane_rows >= S > (n - 1) * lane_rows
+
+
+# (D, cache itemsize) -> rows of a bulk-route tile: a lane holds 8 values
+# of a row, so lpr lanes cover a row; four warps take 4 / (chunks a lane)
+# steps of 32 / lpr rows: at most 8 KB of K
+TILE_ROWS = [((128, 2), 32), ((128, 4), 16), ((256, 4), 8), ((256, 2), 16),
+             ((64, 2), 64), ((40, 2), 64), ((8, 2), 512), ((36, 4), 32),
+             ((32, 4), 64), ((4, 4), 256)]
+
+
+@pytest.mark.parametrize("geom,rows", TILE_ROWS, ids=str)
+def test_bulk_tile_rows(geom, rows):
+    D, itemsize = geom
+    assert bulk_tile_rows(D, itemsize) == rows
+    assert rows * D * itemsize <= 8192
+
+
+def _operands(qdt, kdt, D, G, shift_k=0, shift_v=0):
+    """CPU operands of the route rule; a shift moves K or V off a 16-byte
+    boundary by that many elements."""
+    B, Hkv, S = 2, 2, 5
+
+    def cache(shift):
+        n = B * Hkv * S * D
+        return torch.zeros(n + 16, dtype=kdt)[shift:shift + n].view(
+            B, Hkv, S, D)
+
+    return torch.zeros(B, G * Hkv, D, dtype=qdt), cache(shift_k), \
+        cache(shift_v)
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+# (q dtype, cache dtype, D, G, K shift, V shift) -> bulk-copy route?
+ROUTES = [
+    ((BF16, BF16, 128, 3, 0, 0), True),       # the main path
+    ((F32, F32, 128, 3, 0, 0), True),
+    ((BF16, F32, 128, 3, 0, 0), True),
+    ((F32, BF16, 128, 3, 0, 0), True),
+    ((BF16, BF16, 8, 1, 0, 0), True),         # a row of 16 bytes
+    ((BF16, BF16, 36, 3, 0, 0), False),       # 72 bytes: the earlier kernel
+    ((BF16, BF16, 40, 3, 0, 0), True),        # 80 bytes
+    ((F32, F32, 36, 3, 0, 0), True),          # 144 bytes
+    ((F32, F32, 6, 3, 0, 0), False),          # 24 bytes
+    ((BF16, BF16, 256, 8, 0, 0), True),       # the largest D and G
+    ((F32, F32, 256, 8, 0, 0), True),
+    ((BF16, BF16, 264, 8, 0, 0), False),      # past D 256 (the wrapper
+    ((BF16, BF16, 128, 9, 0, 0), False),      # raises on both)
+    ((BF16, BF16, 128, 3, 1, 0), False),      # K off 16 bytes
+    ((BF16, BF16, 128, 3, 0, 4), False),      # V off 16 bytes
+    ((F32, F32, 128, 3, 4, 4), True),         # 16 bytes on
+    ((F32, F32, 128, 3, 2, 0), False),
+]
+
+
+@pytest.mark.parametrize("case,bulk", ROUTES, ids=str)
+def test_bulk_route_rule(case, bulk):
+    qdt, kdt, D, G, sk, sv = case
+    assert bulk_route(*_operands(qdt, kdt, D, G, sk, sv)) is bulk
+
+
+@pytest.mark.parametrize("pairs,S,tile", [
+    (64, 1056, 32), (64, 37, 32), (2, 1056, 16), (16, 1056, 64),
+    (1, 5000, 8), (4096, 1056, 32), (8, 128, 256), (264, 129, 32),
+    (64, 1, 512), (3, 33, 32)])
+def test_split_lanes_cover_the_cache_in_tiles(pairs, S, tile):
+    lane_rows, n = split_lanes(pairs, S, tile)
+    assert lane_rows % tile == 0 and n >= 1
+    assert n * lane_rows >= S > (n - 1) * lane_rows
+    # about two blocks an SM: no more lanes than 264 blocks ask for
+    assert n <= -(-264 // pairs)
+    if (pairs, S, tile) == (64, 1056, 32):      # the full-width decode
+        assert (lane_rows, n) == (224, 5)
+
+
+@pytest.mark.parametrize("intmax", [True, False])
+def test_decode_ref_matches_jax_at_tile_edges(intmax):
+    """Lengths one short of, at and one past a bulk-route tile (64 rows at
+    D 32, f32), and the whole cache."""
+    B, Hkv, G, D = 4, 2, 3, 32
+    tile = bulk_tile_rows(D, 4)
+    S = 2 * tile + 3
+    rng = np.random.default_rng(31)
+    q = (rng.normal(size=(B, G * Hkv, D)) / np.sqrt(D)).astype(np.float32)
+    k = rng.normal(size=(B, Hkv, S, D)).astype(np.float32)
+    v = rng.normal(size=(B, Hkv, S, D)).astype(np.float32)
+    lens = np.array([tile - 1, tile, tile + 1, S], np.int32)
+    got = decode_ref(*(torch.from_numpy(a) for a in (q, k, v, lens)),
+                     intmax=intmax)
+    jargs = [jnp.asarray(a) for a in (q, k, v, lens)]
+    _close(got, jax_flash_decode(*jargs, intmax=intmax, block_k=64,
+                                 interpret=True))
+    _close(got, jax_decode_ref(*jargs, intmax=intmax))
 
 
 @pytest.fixture(scope="module", params=["llama3.2-3b", "qwen3-4b"])

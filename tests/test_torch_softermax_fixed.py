@@ -23,7 +23,9 @@ Within a tolerance:
   mode at ``tests/test_kernels.py``'s shapes and tolerances (float32
   2e-5, bfloat16 2e-2 absolute), a bfloat16 output also element by element
   within ``kernels/parity.py``'s 1e-2 of its own size: outputs of 1e-3 to
-  1e-2 would pass the absolute bound however wrong;
+  1e-2 would pass the absolute bound however wrong; and at rows one short
+  of, at and one past the register route's cap (float32 2e-5); K6's
+  dispatch rule ``register_route`` as a plain function;
 * K7's oracle ``softermax_quant_ref`` within one Q(1,7) step (2^-7) of the
   mirror: it quantizes numerators at the running max
   (``kernels/softermax_quant/ref.py``).
@@ -39,12 +41,15 @@ import torch
 from repro.core import quant as JQ
 from repro.core import softermax as J
 from repro.kernels.softermax import softermax_op as jax_softermax_op
+from repro.kernels.softermax import \
+    softermax_rows_ref as jax_softermax_rows_ref
 from repro.kernels.softermax_quant import \
     softermax_quant_op as jax_softermax_quant_op
 from repro_torch.core import quant as TQ
 from repro_torch.core import softermax as T
 from repro_torch.kernels.parity import BF16_RTOL, parity_error
-from repro_torch.kernels.softermax import softermax_op
+from repro_torch.kernels.softermax import (REG_CAP, register_route,
+                                           softermax_op)
 from repro_torch.kernels.softermax_quant import (softermax_quant_op,
                                                  softermax_quant_plain,
                                                  softermax_quant_ref)
@@ -194,6 +199,40 @@ def test_softermax_op_masked_rows_are_uniform():
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
     np.testing.assert_allclose(got, 1 / 256, rtol=1e-6)
+
+
+@pytest.mark.parametrize("shape,reg", [
+    ((4, 1), True), ((4, 7), True), ((2, 3, 512), True), ((8, 1024), True),
+    ((4, REG_CAP - 1), True), ((4, REG_CAP), True),
+    ((4, REG_CAP + 1), False), ((2, 4096), False), ((2, 8192), False),
+    ((REG_CAP + 1, 4), True)])
+def test_register_route_rule(shape, reg):
+    """K6's dispatch rule: rows (the last axis) of up to REG_CAP values take
+    the register kernel, longer rows the two-pass kernel."""
+    assert REG_CAP == 2048
+    assert register_route(torch.zeros(shape)) is reg
+
+
+@pytest.mark.parametrize("intmax", [True, False])
+@pytest.mark.parametrize("V", [REG_CAP - 1, REG_CAP, REG_CAP + 1])
+def test_softermax_op_matches_jax_kernel_at_the_register_cap(V, intmax):
+    """Rows one short of, at and one past the register route's cap, with a
+    fully masked, a half-masked and a -30-shifted row: the plain path
+    against the JAX closed form, and against the Pallas kernel in
+    interpret mode on every row but the fully masked one, which is uniform
+    (1/V). The Pallas kernel pads a row to its block_v with NEG_INF, and on
+    a fully masked row each pad enters d as 2^0: it gives 1/2560 where V is
+    2049 (ROADMAP Queue 3)."""
+    x = _scores((4, V), seed=V, scale=3.0)
+    got = softermax_op(torch.from_numpy(x), intmax=intmax).numpy()
+    closed = np.asarray(jax_softermax_rows_ref(jnp.asarray(x), intmax))
+    np.testing.assert_allclose(got, closed, rtol=0,
+                               atol=K6_TOL[torch.float32])
+    np.testing.assert_allclose(got[0], 1 / V, rtol=1e-6)
+    want = _jit_unoptimized(lambda a: jax_softermax_op(
+        a, intmax=intmax, block_v=512, interpret=True))(jnp.asarray(x))
+    np.testing.assert_allclose(got[1:], np.asarray(want)[1:], rtol=0,
+                               atol=K6_TOL[torch.float32])
 
 
 # --- K7: the fixed-point kernel's mirror against the Pallas kernel -------
