@@ -7,7 +7,8 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. Device: torch/CUDA versions and the card's name and power limit.
 2. Build: the CUDA kernels from ``src/repro_torch/csrc`` (ptxas report;
-   the registers and spills of K5's bulk-copy and K6's register kernels).
+   the registers and spills of K5's bulk-copy kernel, K6's and K7's
+   register kernels and K2's tensor-core kernel).
 3. Kernel parity at the main path's head geometry (Hq 24, Hkv 8, D 128,
    block 16): each kernel against its plain PyTorch version.
 4. Engine parity at reduced llama3.2-3b in float32: the engine on the card
@@ -16,9 +17,17 @@ Phases, in order; any failure raises and exits non-zero:
    kernel) and layers x chunks (prefill kernel).
 5. Full-width serving of llama3.2-3b in bfloat16 with random weights:
    one-shot prefill, chunked prefill, a shared-prefix resubmit and an int8
-   pool; every request finishes and the pool invariants hold.
+   pool; every request finishes and the pool invariants hold; every K2
+   launch of the bf16 chunked runs on the tensor-core route, of the int8
+   run on the earlier kernel. A profile of one chunked run (K2's share of
+   its device time); the chunked run once more on the earlier K2 kernel,
+   its greedy streams against the tensor-core route's (near-tie audit) and
+   each against the one-shot run's.
 6. Kernel times at the main path's shapes (CUDA events, L2 flushed between
-   launches) beside their bound and their plain versions.
+   launches) beside their bound and their plain versions; for K2, the
+   tensor-core route beside the earlier kernel on the same inputs, the
+   int8 pool (earlier kernel), SDPA on K/V gathered beforehand (a
+   yardstick, gather not timed) and the wrapper's host enqueue time.
 7. Flash-attention kernel parity: K3 (o, m, d) and K4 (dq, dk, dv) against
    their plain versions, bf16 (the tensor-core kernels) and fp32 (the
    CUDA-core kernels), IntMax on and off, causal and not, GQA groups 1 and
@@ -53,8 +62,9 @@ Phases, in order; any failure raises and exits non-zero:
    8 prompts of 1024 tokens, 32 new tokens, with a bf16 and an int8
    cache; tok/s, ms per decode step, K5 launches (every one on the
    bulk-copy route) and a profile of 5 decode steps; the same prompts
-   through the paged engine (one-shot prefill), with a near-tie audit of
-   the first greedy token that differs.
+   through the paged engine (one-shot prefill, and 256-token chunks with
+   K2 on the tensor-core route and on the earlier kernel), each with a
+   near-tie audit of the first greedy token that differs.
 14. K5's time at the full-width decode shape beside its bound, its plain
    version, the earlier kernel on the same inputs and
    scaled_dot_product_attention.
@@ -63,9 +73,9 @@ Phases, in order; any failure raises and exits non-zero:
    rule, f32 and bf16, IntMax on and off; K7 EQUAL (``torch.equal``) to its
    mirror ``softermax_quant_plain`` and within 2^-7 of ``softermax_fixed``;
    masked and pad columns, rows whose max is <= -17, V off the 16-wide
-   slice, V one short of, at and one past the register route's cap, 4096
-   and 8192, and both full-width shapes of phase 20; the route each K6
-   case took.
+   slice, V one short of, at and one past the register routes' cap (4096
+   and 8192 for K6 alone), and both full-width shapes of phase 20; the
+   route each K6 and K7 case took.
 16. (B) Fixed-point parity at reduced size, float32: the static engine on
    the card (K7 prefill, K5 decode) against the same engine on the CPU and
    the paged engine on the card, a first differing token held to the
@@ -76,8 +86,8 @@ Phases, in order; any failure raises and exits non-zero:
    (``softmax_impl="softermax_fixed"``: every one-shot prefill on the naive
    path through K7): 8 prompts of 1024 tokens, 32 new tokens, through the
    static and then the paged engine, with the near-tie audit between them;
-   prefill ms, tok/s, K7 launches (28 per prefill call) and a profile of
-   the prefill by kernel.
+   prefill ms, tok/s, K7 launches (28 per prefill call, every one on the
+   register route) and a profile of the prefill by kernel.
 18. (D) Full-width naive float path: the same prompts through the static
    engine with ``attention_impl="naive"``, ``softmax_impl="softermax"`` (K6,
    28 launches per prefill, every one on the register route), audited
@@ -87,14 +97,15 @@ Phases, in order; any failure raises and exits non-zero:
    768, seq 512, batch 16, fp32 master weights, bf16 compute, remat
    "full"): the Table III workflow at 10 pretrain and 5 finetune steps per
    variant, every eval loss finite; ms per ``softermax_fixed`` and per
-   ``softmax`` step, K7 launches per step, peak memory.
+   ``softmax`` step, K7 launches per step (every one on the register
+   route), peak memory.
 20. (F) K6 and K7 times at the full-width prefill shape (rows 8 x 24 x
    1024, V 1024, f32) and the bert shape (rows 16 x 12 x 512, V 512) beside
-   their byte bound, their plain versions and, for K6, the two-pass kernel
-   on the same inputs (its earlier route) and ``torch.softmax``
-   of the scores already scaled by ln 2 as the library yardstick (the
-   factor folds into q in use, so it is not timed; no PyTorch call
-   computes K7's function).
+   their byte bound, their plain versions, the two-pass kernels on the same
+   inputs (their earlier routes; K7's EQUAL to the mirror on both) and,
+   for K6, ``torch.softmax`` of the scores already scaled by ln 2 as the
+   library yardstick (the factor folds into q in use, so it is not timed;
+   no PyTorch call computes K7's function).
 
 21. (G) Per-head paged decode kernel (K8) parity: K8 against its plain
    version ``paged_decode_single_plain`` for f32, bf16 and int8 pools,
@@ -268,6 +279,7 @@ def _reset_counts():
     flash_decode_paged.launches = 0
     flash_decode_paged_single.launches = 0
     flash_prefill_paged.launches = 0
+    flash_prefill_paged.launches_tc = 0
     flash_attention.launches = 0
     flash_attention_bwd.launches = 0
     flash_attention.launches_tc = 0
@@ -277,6 +289,7 @@ def _reset_counts():
     softermax_rows.launches = 0
     softermax_rows.launches_reg = 0
     softermax_quant_rows.launches = 0
+    softermax_quant_rows.launches_reg = 0
 
 
 def _all_counts():
@@ -287,10 +300,13 @@ def _all_counts():
 
 
 def _route_counts():
-    """(K5 on the bulk-copy route, K6 on the register route) launches."""
+    """(K5 on the bulk-copy route, K6 on the register route, K7 on the
+    register route) launches."""
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.softermax import softermax_rows
-    return flash_decode.launches_bulk, softermax_rows.launches_reg
+    from repro_torch.kernels.softermax_quant import softermax_quant_rows
+    return (flash_decode.launches_bulk, softermax_rows.launches_reg,
+            softermax_quant_rows.launches_reg)
 
 
 def _softermax_counts():
@@ -391,11 +407,52 @@ def phase_engine_parity(dev):
           f"decode={k1}")
 
 
+def _chunked_on_earlier_k2(cfg, params, prompts, max_new, dev, **kw):
+    """The prompts through the paged engine with 256-token chunks, every
+    K2 launch on the earlier (CUDA-core) kernel: the route rule is switched
+    off for this run alone. Returns the greedy tokens (B, T) and the
+    logits behind them by (prompt index, step)."""
+    import numpy as np
+    from repro_torch.kernels.flash_prefill_paged import flash_prefill_paged
+    from repro_torch.kernels.flash_prefill_paged import ops as k2_ops
+    from repro_torch.serve import ContinuousEngine
+    rule = k2_ops.tc_route
+    k2_ops.tc_route = lambda *args: False
+    try:
+        eng = ContinuousEngine(cfg, params, device=dev, prefill_chunk=256,
+                               **kw)
+        rec = _paged_logits(eng)
+        _reset_counts()
+        res = _drive(eng, prompts, max_new)[0]
+        k2, k2_tc = _counts()[1], flash_prefill_paged.launches_tc
+    finally:
+        k2_ops.tc_route = rule
+    check(k2 > 0 and k2_tc == 0, f"chunked-256 on the earlier K2 kernel: "
+                                 f"launches {k2}, {k2_tc} on the tensor "
+                                 f"cores")
+    logits = {(i, t): rec[r.req_id, t] for i, r in enumerate(res)
+              for t in range(max_new)}
+    return np.array([r.tokens for r in res]), logits
+
+
+def _stream_share(a, b):
+    """Share of equal greedy tokens and of equal streams of two runs."""
+    return float((a == b).mean()), int((a == b).all(axis=1).sum())
+
+
 def phase_full_width(dev):
     """Full-width llama3.2-3b in bf16: one-shot, chunked, shared-prefix
-    resubmit, int8 pool. Returns the chunked run's launch counts."""
+    resubmit, int8 pool; every K2 launch of the bf16 chunked runs on the
+    tensor-core route, of the int8 run on the earlier kernel. Then the
+    chunked run profiled (K2's share of its device time) and once more on
+    the earlier K2 kernel, the greedy streams of the three runs compared.
+    Under the reference's init the logits are decisive at every step and
+    flip between any two summation orders (PERF.md), so the shares
+    are read, not gated; phase 13's weights gate chunked against static
+    streams. Returns the chunked run's launch counts."""
     import numpy as np
     import torch
+    from repro_torch.kernels.flash_prefill_paged import flash_prefill_paged
     from repro_torch.models.lm import cast_matrix_params
     from repro_torch.models.registry import get_config, init_lm_params
     from repro_torch.serve import ContinuousEngine, check_invariants
@@ -419,6 +476,7 @@ def phase_full_width(dev):
             ("int8-chunked-256", dict(prefill_chunk=256, kv_dtype="int8"),
              prompts)]
     main_counts = None
+    streams = {}
     for name, kw, ps in runs:
         eng = ContinuousEngine(cfg, params, device=dev, **base, **kw)
         passes = [(name, ps)]
@@ -434,6 +492,11 @@ def phase_full_width(dev):
             hits0 = eng.metrics.prefix_hit_tokens
             res, wall, dec_ms, n_dec, n_chunk = _drive(eng, batch, max_new)
             k1, k2 = _counts()
+            k2_tc = flash_prefill_paged.launches_tc
+            want_tc = 0 if "int8" in label else k2
+            check(k2_tc == want_tc, f"{label}: {k2_tc} of {k2} K2 launches "
+                                    f"on the tensor-core route, not "
+                                    f"{want_tc}")
             check(all(len(r.tokens) == max_new for r in res),
                   f"{label}: a request did not finish with {max_new} tokens")
             check_invariants(eng.pool, eng.prefix_cache)
@@ -456,11 +519,37 @@ def phase_full_width(dev):
                   f"(n={len(dec_ms)}), peak memory "
                   f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
                   f"prefix hits {hits} tokens, launches "
-                  f"decode={k1} prefill={k2}")
+                  f"decode={k1} prefill={k2} (tensor cores {k2_tc})")
             if label == "chunked-256":
                 main_counts = (k1, k2)
+            if label in ("one-shot", "chunked-256"):
+                streams[label] = np.array([r.tokens for r in res])
         del eng
         torch.cuda.empty_cache()
+
+    # K2's share of the chunked run's device time
+    eng = ContinuousEngine(cfg, params, device=dev, **base,
+                           prefill_chunk=256)
+    print("[5] " + step_profile(lambda: _drive(eng, prompts, max_new), 1,
+                                "chunked-256 run (one run)",
+                                watch=("paged_prefill_tc_kernel",)))
+    del eng
+    # the same run on the earlier K2 kernel: the tensor-core route leaves
+    # the one-shot and the chunked streams as (un)equal as the earlier
+    # kernel does
+    earlier = _chunked_on_earlier_k2(cfg, params, prompts, max_new, dev,
+                                     **base)[0]
+    one, tc = streams["one-shot"], streams["chunked-256"]
+    for a, b, what in ((one, tc, "one-shot vs chunked-256 (tensor cores)"),
+                       (one, earlier, "one-shot vs chunked-256 (earlier K2 "
+                                      "kernel)"),
+                       (tc, earlier, "chunked-256, tensor cores vs earlier "
+                                     "K2 kernel")):
+        share, n_eq = _stream_share(a, b)
+        print(f"[5] {what}: {share:.3f} of greedy tokens equal, "
+              f"{n_eq}/{len(a)} streams equal (reference init: read, not "
+              f"gated)")
+    del streams
 
     # where a decode step's time goes: a profiled window once every
     # request is decoding
@@ -542,10 +631,15 @@ def _time_ms(fn, flush, iters=20):
 def phase_kernel_times(dev, main_counts, n_layers):
     import numpy as np
     import torch
+    import torch.nn.functional as F
     from repro_torch.kernels.flash_decode_paged import (flash_decode_paged,
+                                                        gather_kv,
                                                         paged_decode_ref)
     from repro_torch.kernels.flash_prefill_paged import (flash_prefill_paged,
                                                          paged_prefill_ref)
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_prefill_paged import ops as k2_ops
+    from repro_torch.kernels.parity import parity_error, tolerance
     rng = np.random.default_rng(1)
     Hq, Hkv, D, BS = 24, 8, 128, 16
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
@@ -574,7 +668,10 @@ def phase_kernel_times(dev, main_counts, n_layers):
                     "flash_decode_paged.py:150", main_counts[0], n_layers,
                     err, ms, plain, nbytes, flops))
 
-    # K2: one 256-token chunk at pos0 = 768, bf16 pool
+    # K2: one 256-token chunk at pos0 = 768, bf16 pool: the tensor-core
+    # route, the earlier kernel on the same inputs, the int8 pool (earlier
+    # kernel) and SDPA on K/V gathered beforehand (a yardstick only: no
+    # PyTorch call computes paged attention)
     C, pos0 = 256, 768
     W = (pos0 + C) // BS
     kp, vp, _, _ = _pools(rng, W + 1, Hkv, BS, D, "bfloat16", dev)
@@ -582,20 +679,78 @@ def phase_kernel_times(dev, main_counts, n_layers):
                           .astype(np.int32)[None]).to(dev)
     p0 = torch.tensor([pos0], dtype=torch.int32, device=dev)
     q = _rand(rng, (1, Hq, C, D), D ** -0.5).to(dev, torch.bfloat16)
-    saved = flash_prefill_paged.launches
+    saved = flash_prefill_paged.launches, flash_prefill_paged.launches_tc
     got = flash_prefill_paged(q, kp, vp, bt, p0)
-    err = (got.float() - paged_prefill_ref(q, kp, vp, bt, p0).float()) \
-        .abs().max().item()
+    check(flash_prefill_paged.launches_tc == saved[1] + 1,
+          "K2 phase-6 shape: not on the tensor-core route")
+    want = paged_prefill_ref(q, kp, vp, bt, p0)
+    err, held = parity_error(got, want)
+    tol = tolerance(torch.bfloat16)
+    check(held <= tol, f"K2 tensor-core route: max |err| {err}, checked "
+                       f"error {held} > {tol}")
+
+    def earlier_k2(*pools):
+        return k2_ops._launch(q, *pools[:2], bt, p0, *pools[2:], True, 1,
+                              tc=False)[0]
+
+    err_early = parity_error(earlier_k2(kp, vp, None, None), want)[0]
     ms = _time_ms(lambda: flash_prefill_paged(q, kp, vp, bt, p0), flush)
+    earlier = _time_ms(lambda: earlier_k2(kp, vp, None, None), flush)
     plain = _time_ms(lambda: paged_prefill_ref(q, kp, vp, bt, p0), flush)
-    flash_prefill_paged.launches = saved
+    ms2 = _time_ms(lambda: flash_prefill_paged(q, kp, vp, bt, p0), flush)
+    host = _host_ms(lambda: flash_prefill_paged(q, kp, vp, bt, p0))
+    # of which the C entry alone: three tensor maps encoded, the launch
+    out_c = torch.empty_like(q)
+    c_args = [build.ptr(t) for t in (q, kp, vp, bt, p0, out_c)] + [
+        1, Hq, Hkv, C, D, BS, W, W + 1, 1, build.stream_ptr(q.device)]
+    host_c = _host_ms(lambda: build.check(
+        build.load_library().smx_paged_prefill_tc(*c_args), "K2 C entry"))
+    # the int8 pool at the same shape: the earlier kernel's route
+    kq, vq, ks, vs = _pools(rng, W + 1, Hkv, BS, D, "int8", dev)
+    tc0 = flash_prefill_paged.launches_tc
+    got8 = flash_prefill_paged(q, kq, vq, bt, p0, k_scale=ks, v_scale=vs)
+    check(flash_prefill_paged.launches_tc == tc0,
+          "K2 int8 pool: took the tensor-core route")
+    err8, held8 = parity_error(got8, paged_prefill_ref(
+        q, kq, vq, bt, p0, k_scale=ks, v_scale=vs))
+    check(held8 <= tol, f"K2 int8 pool: {err8} ({held8})")
+    int8_ms = _time_ms(lambda: flash_prefill_paged(
+        q, kq, vq, bt, p0, k_scale=ks, v_scale=vs), flush)
+    flash_prefill_paged.launches, flash_prefill_paged.launches_tc = saved
+    # SDPA with scale ln 2 on the pre-gathered K/V and the positional mask
+    kg, vg = gather_kv(kp, bt), gather_kv(vp, bt)
+    mask = (torch.arange(W * BS, device=dev)[None] <=
+            pos0 + torch.arange(C, device=dev)[:, None])
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, kg, vg, attn_mask=mask,
+                                              scale=math.log(2),
+                                              enable_gqa=True)
+
+    sdpa_err = parity_error(sdpa(), got)[0]
+    sdpa_ms = _time_ms(sdpa, flush)
     keys = sum(pos0 + i + 1 for i in range(C))   # causal: what the data needs
     nbytes = 2 * (pos0 + C) * Hkv * D * 2 + 2 * q.numel() * 2 + W * 4 + 4
     flops = 4 * Hq * keys * D
-    out.append(_row("flash_prefill_paged", "flash_prefill_paged.cu",
-                    "src/repro/kernels/flash_prefill_paged/"
-                    "flash_prefill_paged.py:136", main_counts[1], n_layers,
-                    err, ms, plain, nbytes, flops))
+    print(f"[6] K2 at one 256-token chunk at pos0 {pos0} (Hq {Hq}, Hkv "
+          f"{Hkv}, D {D}, BS {BS}, bf16): tensor-core route {ms:.4f} / "
+          f"{ms2:.4f} ms, max |err| vs plain {err:.3g} (checked {held:.3g} "
+          f"<= {tol}), {8 * Hq * keys * D / ms / 1e9:.1f} TFLOP/s of "
+          f"tensor-core work (8·D per visible pair); earlier kernel on the "
+          f"same inputs {earlier:.4f} ms (vs plain {err_early:.3g}); int8 "
+          f"pool (earlier kernel) {int8_ms:.4f} ms (checked {held8:.3g}); "
+          f"plain {plain:.4f} ms; SDPA on pre-gathered K/V (gather not "
+          f"timed) {sdpa_ms:.4f} ms (vs K2 {sdpa_err:.3g}); wrapper host "
+          f"enqueue {host * 1e3:.1f} us per call, of which the C entry "
+          f"(three tensor maps encoded, the launch) {host_c * 1e3:.1f} us")
+    row = _row("flash_prefill_paged", "flash_prefill_paged_tc.cu",
+               "src/repro/kernels/flash_prefill_paged/"
+               "flash_prefill_paged.py:136", main_counts[1], n_layers,
+               err, ms, plain, nbytes, flops)
+    row.update(earlier_ms=earlier, int8_earlier_ms=int8_ms,
+               sdpa_pregathered_ms=sdpa_ms, host_enqueue_ms=host,
+               host_c_entry_ms=host_c)
+    out.append(row)
     return out
 
 
@@ -897,14 +1052,16 @@ def _ptxas_kernels(report, sources):
             if "Compiling entry function" in line:
                 name = line.split("'")[1]
                 short = re.search(r"(decode_bulk_kernel|softermax_rows_reg_"
-                                  r"kernel)I(13__nv_bfloat16|f)Li(\d+)ELi"
-                                  r"(\d+)E", name)
+                                  r"kernel|softermax_quant_reg_kernel)I"
+                                  r"(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E",
+                                  name)
                 if short:
                     kern, dt, a, b = short.groups()
                     name = (f"{kern}<{'bf16' if dt != 'f' else 'f32'}, {a}, "
                             f"{b}>")
                 for short in ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel",
-                              "flash_bwd_dq_tc_kernel"):
+                              "flash_bwd_dq_tc_kernel",
+                              "paged_prefill_tc_kernel"):
                     if short in name:
                         dp = name.split("ILi")[1].split("E")[0]
                         name = f"{short}<{dp}>"
@@ -1279,6 +1436,7 @@ def phase_static_full_width(dev):
     run with that init failed the near-tie audit: PERF.md, PR 13)."""
     import numpy as np
     import torch
+    from repro_torch.kernels.flash_prefill_paged import flash_prefill_paged
     from repro_torch.models.lm import cast_matrix_params
     from repro_torch.models.registry import get_config, init_lm_params
     from repro_torch.serve import ContinuousEngine, ServeEngine
@@ -1353,7 +1511,38 @@ def phase_static_full_width(dev):
           f"equal")
     for line in lines:
         print("[13] near-tie audit: " + line)
-    del eng, out, p_logits, params
+    del eng, p_logits
+
+    # the same prompts through the paged engine in 256-token chunks (K2),
+    # on the tensor-core route and on the earlier kernel, each held to the
+    # static engine's streams by the near-tie audit
+    kw = dict(block_size=16, num_blocks=B * (max_len // 16 + 1) + 1,
+              max_batch=B, max_len=max_len)
+    eng = ContinuousEngine(cfg, params, prefill_chunk=256, device=dev, **kw)
+    rec = _paged_logits(eng)
+    _reset_counts()
+    res = _drive(eng, prompts, max_new)[0]
+    k2, k2_tc = _counts()[1], flash_prefill_paged.launches_tc
+    check(k2 == k2_tc == L * B * (P // 256),
+          f"paged chunked-256: K2 launches {k2}, {k2_tc} on the tensor "
+          f"cores")
+    chunked = {"tensor cores": (
+        np.array([r.tokens for r in res]),
+        {(i, t): rec[r.req_id, t] for i, r in enumerate(res)
+         for t in range(max_new)})}
+    del eng, rec
+    chunked["earlier K2 kernel"] = _chunked_on_earlier_k2(
+        cfg, params, prompts, max_new, dev, **kw)
+    for label, (toks, lg) in chunked.items():
+        share, lines = _near_tie_audit(tokens, [list(t) for t in toks],
+                                       s_logits, lg, cfg.vocab_size)
+        n_equal = sum(tokens[b].tolist() == list(toks[b]) for b in range(B))
+        print(f"[13] static vs paged engine (bf16, chunked-256, K2 on the "
+              f"{label}): {share:.3f} of greedy tokens equal, {n_equal}/{B} "
+              f"streams equal, K2 launches {k2}")
+        for line in lines:
+            print("[13] near-tie audit: " + line)
+    del out, chunked, params
     torch.cuda.empty_cache()
     return k5
 
@@ -1450,13 +1639,15 @@ def phase_softermax_parity(dev):
     from repro_torch.kernels.softermax_quant import (softermax_quant_plain,
                                                      softermax_quant_ref,
                                                      softermax_quant_rows)
-    saved = _softermax_counts(), softermax_rows.launches_reg
+    saved = _softermax_counts(), _route_counts()
+    # the route boundary (K6 and K7 share REG_CAP)
     shapes = [(4, 128), (8, 1024), (5, 300), (16, 64), (21, 130), (8, 37),
-              (2, 16), (12, 200), (3, 1), PREFILL_ROWS, BERT_ROWS]
-    # K6's route boundary and the two-pass kernel's rows (K6 alone)
-    k6_only = [(6, REG_CAP - 1), (6, REG_CAP), (6, REG_CAP + 1), (4, 4096),
-               (4, 8192)]
+              (2, 16), (12, 200), (3, 1), PREFILL_ROWS, BERT_ROWS,
+              (6, REG_CAP - 1), (6, REG_CAP), (6, REG_CAP + 1)]
+    # the two-pass kernel's longer rows (K6 alone)
+    k6_only = [(4, 4096), (4, 8192)]
     routes = {True: 0, False: 0}
+    routes7 = {True: 0, False: 0}
     worst6, worst7, n7 = {}, 0.0, 0
     for shape in shapes + k6_only:
         x = _score_rows(shape, sum(shape), 4.0, dev)
@@ -1482,8 +1673,13 @@ def phase_softermax_parity(dev):
                 del got, want
             if shape in k6_only:
                 continue
+            reg0 = softermax_quant_rows.launches_reg
             got = softermax_quant_rows(xd)
             torch.cuda.synchronize()
+            reg = softermax_quant_rows.launches_reg - reg0
+            check(reg == int(shape[1] <= REG_CAP),
+                  f"K7 {shape}: register-route launches {reg}")
+            routes7[bool(reg)] += 1
             check(bool(torch.equal(got, softermax_quant_plain(xd))),
                   f"K7 {shape} {dtn}: differs from softermax_quant_plain")
             ref_err = (got.float() - softermax_quant_ref(xd.float())) \
@@ -1497,7 +1693,7 @@ def phase_softermax_parity(dev):
         torch.cuda.empty_cache()
     # comparison launches do not count
     _set_softermax_counts(saved[0])
-    softermax_rows.launches_reg = saved[1]
+    _set_route_counts(saved[1])
     for dtn, (err, held) in sorted(worst6.items()):
         print(f"[15] K6 vs plain, {dtn}: max |err| {err:.3g}, checked error "
               f"{held:.3g} <= {tolerance(getattr(torch, dtn))} "
@@ -1506,13 +1702,24 @@ def phase_softermax_parity(dev):
           f"<= {REG_CAP}), {routes[False]} on the two-pass kernel")
     print(f"[15] K7 == softermax_quant_plain in all {n7} cases (f32, bf16; "
           f"up to {PREFILL_ROWS[0]} x {PREFILL_ROWS[1]}); max |K7 - "
-          f"softermax_fixed| {worst7:.3g} <= 2^-7")
+          f"softermax_fixed| {worst7:.3g} <= 2^-7; {routes7[True]} cases on "
+          f"the register kernel (V <= {REG_CAP}), {routes7[False]} on the "
+          f"two-pass kernel")
 
 
 def _set_softermax_counts(counts):
     from repro_torch.kernels.softermax import softermax_rows
     from repro_torch.kernels.softermax_quant import softermax_quant_rows
     softermax_rows.launches, softermax_quant_rows.launches = counts
+
+
+def _set_route_counts(counts):
+    """Restore ``_route_counts()``."""
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.softermax import softermax_rows
+    from repro_torch.kernels.softermax_quant import softermax_quant_rows
+    (flash_decode.launches_bulk, softermax_rows.launches_reg,
+     softermax_quant_rows.launches_reg) = counts
 
 
 def _logit_list_audit(a_tokens, b_tokens, a_logits, b_logits, vocab):
@@ -1557,11 +1764,11 @@ def phase_fixed_reduced(dev):
         runs[str(d)] = (res.tokens, [lg.cpu() for lg in rec.logits])
     (ct, cl), (gt, gl) = runs["cpu"], runs[str(dev)]
     share, lines = _logit_list_audit(gt, ct, gl, cl, cfg.vocab_size)
-    paged, p_logits, k7 = _paged_run(cfg, params, prompts, max_new, dev,
-                                     block_size=8, num_blocks=40)
-    check(k7 == cfg.n_layers * len(prompts),
-          f"paged fixed-point: K7 launches {k7} != {cfg.n_layers} x "
-          f"{len(prompts)} one-shot prefills")
+    paged, p_logits, (k7, k7_reg) = _paged_run(
+        cfg, params, prompts, max_new, dev, block_size=8, num_blocks=40)
+    check(k7 == k7_reg == cfg.n_layers * len(prompts),
+          f"paged fixed-point: K7 launches {k7} ({k7_reg} on the register "
+          f"route) != {cfg.n_layers} x {len(prompts)} one-shot prefills")
     p_share, p_lines = _near_tie_audit(gt, paged, gl, p_logits,
                                        cfg.vocab_size)
     print(f"[16] reduced llama3.2-3b f32 softermax_fixed: card vs cpu static "
@@ -1622,7 +1829,7 @@ def phase_fixed_reduced(dev):
 def _paged_run(cfg, params, prompts, max_new, dev, **kw):
     """The prompts through the paged engine (one-shot prefill): greedy
     streams, the logits behind each token by (prompt index, step), and the
-    K7 launches of the run."""
+    K7 launches of the run (all, and on the register route)."""
     from repro_torch.serve import ContinuousEngine
     B = len(prompts)
     max_len = len(prompts[0]) + max_new
@@ -1634,7 +1841,7 @@ def _paged_run(cfg, params, prompts, max_new, dev, **kw):
     _reset_counts()
     handles = [eng.submit(p, max_new) for p in prompts]
     res = eng.run()
-    k7 = _softermax_counts()[1]
+    k7 = _softermax_counts()[1], _route_counts()[2]
     paged = [res[h.req_id].tokens for h in handles]
     logits = {(i, t): rec[h.req_id, t].cpu() for i, h in enumerate(handles)
               for t in range(max_new)}
@@ -1686,7 +1893,8 @@ def _static_run(cfg, params, prompts, max_new, dev, label, tag):
           f"{B * max_new / wall:.1f} tok/s ({wall:.2f}s incl. prefill "
           f"{rec.prefill_ms:.1f} ms), {np.mean(rec.decode_ms):.2f} ms per "
           f"decode step, launches K1-K7 {counts} (K5 on the bulk-copy route "
-          f"{routes[0]}, K6 on the register route {routes[1]}), peak memory "
+          f"{routes[0]}, K6 on the register route {routes[1]}, K7 on the "
+          f"register route {routes[2]}), peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     tokens = torch.as_tensor(prompts, device=dev)
     print(f"[{tag}] {label} " + step_profile(lambda: eng._prefill(tokens), 1,
@@ -1705,22 +1913,28 @@ def phase_fixed_full_width(dev):
     cfg, params, prompts = _full_width_llama(dev)
     cfg = cfg.replace(softmax_impl="softermax_fixed")
     L, max_new = cfg.n_layers, 32
-    tokens, s_logits, counts, _ = _static_run(
+    tokens, s_logits, counts, routes = _static_run(
         cfg, params, prompts, max_new, dev, "static softermax_fixed", 17)
     check(counts == (0, 0, 0, 0, L * (max_new - 1), 0, L),
           f"static softermax_fixed: launches K1-K7 {counts}")
+    check(routes[2] == counts[6], f"static softermax_fixed: {routes[2]} of "
+                                  f"{counts[6]} K7 launches on the register "
+                                  "route")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    paged, p_logits, k7 = _paged_run(cfg, params, prompts, max_new, dev)
+    paged, p_logits, (k7, k7_reg) = _paged_run(cfg, params, prompts,
+                                               max_new, dev)
     wall = time.perf_counter() - t0
-    check(k7 == L * len(prompts), f"paged softermax_fixed: K7 launches {k7} "
-                                  f"!= {L} x {len(prompts)} prefills")
+    check(k7 == k7_reg == L * len(prompts),
+          f"paged softermax_fixed: K7 launches {k7} ({k7_reg} on the "
+          f"register route) != {L} x {len(prompts)} prefills")
     share, lines = _near_tie_audit(tokens, paged, s_logits, p_logits,
                                    cfg.vocab_size)
     n_equal = sum(tokens[b].tolist() == paged[b] for b in range(len(paged)))
     print(f"[17] paged softermax_fixed: {len(paged)} requests x {max_new} "
           f"tokens, {len(paged) * max_new / wall:.1f} tok/s, K7 launches "
-          f"{k7} ({L} per one-shot prefill), peak memory "
+          f"{k7} ({L} per one-shot prefill, {k7_reg} on the register "
+          f"route), peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     print(f"[17] static vs paged engine (softermax_fixed, bf16): {share:.3f} "
           f"of greedy tokens equal, {n_equal}/{len(paged)} streams equal")
@@ -1743,7 +1957,7 @@ def phase_naive_full_width(dev):
         naive, params, prompts, max_new, dev, "static naive softermax", 18)
     check(counts == (0, 0, 0, 0, L * (max_new - 1), L, 0),
           f"static naive: launches K1-K7 {counts}")
-    check(routes == (counts[4], counts[5]),
+    check(routes == (counts[4], counts[5], 0),
           f"static naive: K5 / K6 launches {counts[4:6]}, on the bulk-copy "
           f"and register routes {routes}")
     flash = cfg.replace(attention_impl="flash", softmax_impl="softermax")
@@ -1788,14 +2002,16 @@ def phase_bert_finetune(dev):
                             seq=seq, batch=batch)
     wall = time.perf_counter() - t0
     counts = _all_counts()
+    k7_reg = _route_counts()[2]
     check(all(np.isfinite(v) for v in res.values()),
           f"bert-base Table III: losses {res}")
-    check(counts[5] == 0 and counts[6] > 0,
-          f"bert-base Table III: launches K1-K7 {counts}")
+    check(counts[5] == 0 and counts[6] > 0 and k7_reg == counts[6],
+          f"bert-base Table III: launches K1-K7 {counts}, K7 on the "
+          f"register route {k7_reg}")
     print(f"[19] bert-base Table III workflow (seq {seq}, batch {batch}, 10 "
           f"pretrain + 3 x 5 finetune steps, 5 evals) in {wall:.1f}s, peak "
           f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
-          f"launches K1-K7 {counts}")
+          f"launches K1-K7 {counts} (K7 on the register route {k7_reg})")
     for line in report(res).splitlines():
         if line.strip():
             print("[19] " + line)
@@ -1813,13 +2029,16 @@ def phase_bert_finetune(dev):
         ms, k7 = [], []
         for _ in range(4):
             b = next(data)
-            c0 = _softermax_counts()[1]
+            c0 = _softermax_counts()[1], _route_counts()[2]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             params, opt, m = step(params, opt, b)
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
-            k7.append(_softermax_counts()[1] - c0)
+            k7.append(_softermax_counts()[1] - c0[0])
+            check(_route_counts()[2] - c0[1] == k7[-1],
+                  f"{impl} step: {_route_counts()[2] - c0[1]} of {k7[-1]} "
+                  "K7 launches on the register route")
             check(np.isfinite(float(m["loss"])), f"{impl} step: {m}")
         per_step[impl] = (ms, k7, torch.cuda.max_memory_allocated())
         print(f"[19] bert-base {impl} step: {np.mean(ms[1:]):.1f} ms (steps "
@@ -1853,10 +2072,11 @@ def phase_softermax_times(dev, k6_launches, k7_launches, n_layers):
     from repro_torch.kernels.parity import parity_error
     from repro_torch.kernels.softermax import (ops, softermax_rows,
                                                softermax_rows_ref)
+    from repro_torch.kernels.softermax_quant import ops as ops7
     from repro_torch.kernels.softermax_quant import (softermax_quant_plain,
                                                      softermax_quant_rows)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
-    saved = _softermax_counts(), softermax_rows.launches_reg
+    saved = _softermax_counts(), _route_counts()
     rows = {}
     for label, shape in (("prefill", PREFILL_ROWS), ("bert", BERT_ROWS)):
         x = torch.randn(shape, device=dev, generator=torch.Generator(
@@ -1879,31 +2099,45 @@ def phase_softermax_times(dev, k6_launches, k7_launches, n_layers):
         xs = x * math.log(2)
         lib6 = _time_ms(lambda: torch.softmax(xs, dim=-1), flush)
         del xs
+        reg0 = softermax_quant_rows.launches_reg
         got = softermax_quant_rows(x)
-        err7 = (got - softermax_quant_plain(x)).abs().max().item()
+        check(softermax_quant_rows.launches_reg == reg0 + 1,
+              f"K7 {shape}: not on the register route")
+        mirror = softermax_quant_plain(x)
+        err7 = (got - mirror).abs().max().item()
         check(err7 == 0.0, f"K7 {shape}: differs from its mirror by {err7}")
+        # the two-pass kernel on the same inputs (its route before)
+        err7_two = (ops7._launch(x, reg=False)[0] - mirror).abs().max() \
+            .item()
+        check(err7_two == 0.0, f"K7 two-pass kernel {shape}: differs from "
+                               f"the mirror by {err7_two}")
+        del mirror
         ms7 = _time_ms(lambda: softermax_quant_rows(x), flush)
+        two7 = _time_ms(lambda: ops7._launch(x, reg=False), flush)
         plain7 = _time_ms(lambda: softermax_quant_plain(x), flush, iters=2)
+        ms7b = _time_ms(lambda: softermax_quant_rows(x), flush)
         rows[label] = (
             dict(_row("softermax_rows", "softermax.cu",
                       "src/repro/kernels/softermax/softermax.py:81",
                       k6_launches, n_layers, err6, ms6, plain6, nbytes,
                       5 * x.numel(), lib6), earlier_ms=two6),
-            _row("softermax_quant_rows", "softermax_quant.cu",
-                 "src/repro/kernels/softermax_quant/softermax_quant.py:67",
-                 k7_launches, n_layers, err7, ms7, plain7, nbytes,
-                 60 * x.numel()))
+            dict(_row("softermax_quant_rows", "softermax_quant.cu",
+                      "src/repro/kernels/softermax_quant/softermax_quant.py"
+                      ":67", k7_launches, n_layers, err7, ms7, plain7,
+                      nbytes, 20 * x.numel()), earlier_ms=two7))
         print(f"[20] {label} shape {shape}: K6 register route {ms6:.4f} / "
               f"{ms6b:.4f} ms (bound {rows[label][0]['bound_ms']:.4f}, "
               f"two-pass kernel {two6:.4f} (vs K6 {err_two:.3g}), plain "
-              f"{plain6:.4f}, torch.softmax {lib6:.4f}); K7 {ms7:.4f} ms "
-              f"(bound {rows[label][1]['bound_ms']:.4f}, plain "
-              f"{plain7:.4f}, no library call)")
+              f"{plain6:.4f}, torch.softmax {lib6:.4f}); K7 register route "
+              f"{ms7:.4f} / {ms7b:.4f} ms (bound "
+              f"{rows[label][1]['bound_ms']:.4f}, two-pass kernel "
+              f"{two7:.4f}, both EQUAL to the mirror; plain {plain7:.4f}, "
+              f"no library call)")
         del x, got
         torch.cuda.empty_cache()
     # timing launches do not count
     _set_softermax_counts(saved[0])
-    softermax_rows.launches_reg = saved[1]
+    _set_route_counts(saved[1])
     out = []
     for i in (0, 1):
         row = dict(rows["prefill"][i])
@@ -2299,7 +2533,9 @@ def main() -> int:
                 "spill" in line:
             print("[2] " + line.strip())
     for name, regs, spill in _ptxas_kernels(
-            build.ptxas_report(), ("flash_decode_bulk.cu", "softermax.cu")):
+            build.ptxas_report(), ("flash_decode_bulk.cu", "softermax.cu",
+                                   "softermax_quant.cu",
+                                   "flash_prefill_paged_tc.cu")):
         print(f"[2] ptxas {name}: {regs} registers, {spill}")
 
     phase_kernel_parity(dev)

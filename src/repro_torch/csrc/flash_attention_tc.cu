@@ -36,7 +36,8 @@
 // multiplied. TMA zero-fills rows past Sk or Sq and columns past D (D
 // 16-64 run the 64-column instance, D 80-128 the 128-column one); masked
 // and padded columns get NEG_INF scores, so they add p = 0. Per KV tile a
-// warpgroup computes S = Q·K^T (wgmma m64n64k16, both operands K-major in
+// warpgroup runs hop_softermax_tile (softermax_tile.cuh, shared with K2's
+// tensor-core route): S = Q·K^T (wgmma m64n64k16, both operands K-major in
 // shared memory), masks only tiles that cross the diagonal or the end of
 // the keys, takes the IntMax and the row sums on the accumulator fragment
 // (each row lives in one quad of lanes), and computes p·V from p's three
@@ -48,6 +49,7 @@
 // above a warpgroup's diagonal are skipped.
 #include "common.cuh"
 #include "hopper.cuh"
+#include "softermax_tile.cuh"
 
 namespace {
 
@@ -158,85 +160,17 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_tc_kernel(
     hop_mbar_wait(&full[s], (it / STAGES) & 1);
     if (k0 < wg_k_end) {
       const uint8_t* k_s = smem + L::KV + s * L::STAGE;
-      const uint8_t* v_s = k_s + L::PANELS * L::PANEL_KV;
-
-      // S = Q·K^T
-      float sc[BN / 2];
-      hop_wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        const int off = (kk % 4) * 32;
-        HopMma<BN>::ss(sc,
-                       hop_desc(q_s + (kk / 4) * L::PANEL_Q + off, 16, 1024),
-                       hop_desc(k_s + (kk / 4) * L::PANEL_KV + off, 16, 1024),
-                       kk > 0);
-      }
-      hop_wgmma_commit();
-      hop_wgmma_wait<0>();
-      hop_fence_regs(sc);
-
       // the causal mask and the end of the keys, where the tile crosses them
-      if (k0 + BN > Sk || (causal && k0 + BN - 1 > wg_q0 + q_offset)) {
-#pragma unroll
-        for (int i = 0; i < BN / 2; ++i) {
-          const int col = k0 + 8 * (i / 4) + col0 + (i & 1);
-          const int row = row0 + 8 * ((i >> 1) & 1);
-          if (col >= Sk || (causal && col > row + q_offset))
-            sc[i] = SMX_NEG_INF;
-        }
-      }
-
-      // IntMax, the rescale, p = 2^(s - m_new) and the row sums; each row
-      // lives in the 4 lanes of a quad
-      float mx[2] = {SMX_NEG_INF, SMX_NEG_INF};
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i)
-        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
-      float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-        const float m_new = fmaxf(m_r[h], intmax ? ceilf(mx[h]) : mx[h]);
-        alpha[h] = smx_rescale(m_r[h] - m_new, intmax);
-        m_r[h] = m_new;
-      }
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i) {
-        const int h = (i >> 1) & 1;
-        sc[i] = exp2f(sc[i] - m_r[h]);
-        sum[h] += sc[i];
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
-        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
-        d_r[h] = d_r[h] * alpha[h] + sum[h];
-      }
-
-      // O = O·alpha + p·V with p = p_hi + p_mid + p_lo exactly
-      // (hop_split3). The tile's product goes to a fresh accumulator and is
-      // added to O on the CUDA cores: the tensor cores' f32 sums are
-      // coarser than round-to-nearest, so a long run of products into one
-      // accumulator drifts, where one tile stays within a few ulps of its
-      // own sum.
-      uint32_t pf[3][BN / 16][4];
-      hop_split_frags(sc, pf);
-      float pv[DP / 2];
-      hop_wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        const uint64_t b_v = hop_desc(v_s + kk * 16 * 128, L::PANEL_KV, 1024);
-#pragma unroll
-        for (int t = 0; t < 3; ++t) HopMma<DP>::rs(pv, pf[t][kk], b_v, kk + t);
-      }
-      hop_wgmma_commit();
-      hop_wgmma_wait<0>();
-      hop_fence_regs(pv);
-      hop_fence_regs(pf);
-#pragma unroll
-      for (int i = 0; i < DP / 2; ++i)
-        o[i] = fmaf(o[i], alpha[(i >> 1) & 1], pv[i]);
+      const bool edge =
+          k0 + BN > Sk || (causal && k0 + BN - 1 > wg_q0 + q_offset);
+      hop_softermax_tile<DP>(
+          q_s, L::PANEL_Q, k_s, k_s + L::PANELS * L::PANEL_KV, L::PANEL_KV,
+          edge,
+          [&](int h, int c) {
+            const int col = k0 + c;
+            return col >= Sk || (causal && col > row0 + 8 * h + q_offset);
+          },
+          o, m_r, d_r, intmax);
     }
     __syncwarp();
     if (lane == 0) hop_mbar_arrive(&empty[s]);

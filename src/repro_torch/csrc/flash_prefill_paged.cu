@@ -12,16 +12,19 @@
 // Bound on this card: operations. Each gathered KV tile is reused by all
 // G*BQ query rows of a block, so arithmetic intensity grows with the query
 // tile and is far above the bandwidth ridge at main-path shapes. This
-// version keeps everything in fp32 on the CUDA cores (the parity contract
-// keeps p in fp32, where a tensor-core path would round it to bf16) and
-// spends its design on feeding them: a block stages its (G*BQ, D) query
-// tile once and then 64-row KV tiles (16-byte loads, all in flight) in
-// shared memory, row strides padded by one float so the column-wise reads
-// hit distinct banks; each thread computes a 4 x 4 block of scores and an
-// 8 x 4 block of the accumulator held in registers, so every shared-memory
-// read feeds several multiply-adds; tiles wholly above the diagonal are
-// skipped. The KV tile size is internal: T (kv_tile_blocks) is a layout
-// knob that computes the same attention and shapes nothing here.
+// kernel is the parity route (kernels/flash_prefill_paged/ops.py::tc_route):
+// f32 q or pools, int8 pools and every D or BS off the tensor-core route.
+// bf16 q with a bf16 pool takes flash_prefill_paged_tc.cu, which keeps the
+// f32 p exact on the tensor cores as three bf16 terms (hop_split3). This
+// one keeps everything in fp32 on the CUDA cores and spends its design on
+// feeding them: a block stages its (G*BQ, D) query tile once and then
+// 64-row KV tiles (16-byte loads, all in flight) in shared memory, row
+// strides padded by one float so the column-wise reads hit distinct banks;
+// each thread computes a 4 x 4 block of scores and an 8 x 4 block of the
+// accumulator held in registers, so every shared-memory read feeds several
+// multiply-adds; tiles wholly above the diagonal are skipped. The KV tile
+// size is internal: T (kv_tile_blocks) is a layout knob that computes the
+// same attention and shapes nothing here.
 //
 // Grid (B*Hkv, ceil(Sq/BQ)); one block owns the G*BQ <= 64 query rows
 // (head g, position i) -> row g*BQ + i of one KV head. Per KV tile:

@@ -1,8 +1,9 @@
 // Hopper building blocks of the tensor-core attention kernels
-// (flash_attention_tc.cu, flash_backward_tc.cu) and the bulk-copy decode
-// kernel (flash_decode_bulk.cu): TMA tile loads and 1-D bulk copies
-// completed on mbarriers, wgmma shared-memory descriptors, and the wgmma
-// instructions the kernels issue, with their operand lists spelled out.
+// (flash_attention_tc.cu, flash_backward_tc.cu, flash_prefill_paged_tc.cu)
+// and the bulk-copy decode kernel (flash_decode_bulk.cu): TMA tile loads
+// and 1-D bulk copies completed on mbarriers, wgmma shared-memory
+// descriptors, and the wgmma instructions the kernels issue, with their
+// operand lists spelled out.
 //
 // Tiles are bf16, staged by TMA with CU_TENSOR_MAP_SWIZZLE_128B in panels
 // of 64 columns (128 bytes a row, rows contiguous) whose bases are 1024-byte
@@ -85,6 +86,22 @@ __device__ __forceinline__ void hop_tma_load(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%2, %3, %4}], [%5];"
       :: "r"(hop_smem(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(col), "r"(row), "r"(head), "r"(hop_smem(bar))
+      : "memory");
+}
+
+// One box of a 4-D tensor map, coordinates (column, row, head, block), into
+// shared memory; completes the box's bytes of the barrier's transaction
+// count (out-of-range coordinates deliver zeros and count all the same).
+__device__ __forceinline__ void hop_tma_load_4d(void* dst,
+                                                const CUtensorMap* map,
+                                                uint64_t* bar, int col,
+                                                int row, int head,
+                                                int block) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];"
+      :: "r"(hop_smem(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(col), "r"(row), "r"(head), "r"(block), "r"(hop_smem(bar))
       : "memory");
 }
 
@@ -358,6 +375,29 @@ static cudaError_t hop_map_rows(CUtensorMap* map, const void* base,
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Tensor map of a contiguous bf16 paged pool (blocks, heads, BS, D), read in
+// boxes of 64 columns x BS rows of one (block, head) with the 128-byte
+// swizzle: one pool block of one head per box. Columns past D and blocks
+// past `blocks` are zero-filled.
+static cudaError_t hop_map_pool(CUtensorMap* map, const void* base,
+                                int blocks, int heads, int BS, int D) {
+  const HopEncodeTiled encode = hop_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {
+      static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(BS),
+      static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(blocks)};
+  const cuuint64_t row = static_cast<cuuint64_t>(D) * 2;
+  const cuuint64_t strides[3] = {row, row * BS, row * BS * heads};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(BS), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -45,6 +45,9 @@ _SIGNATURES = {
     # q, k_pool, v_pool, k_scale, v_scale, tables, q_pos0, out,
     # B, Hq, Hkv, Sq, D, BS, Wp, BQ, q_dtype, kv_dtype, intmax, stream
     "smx_paged_prefill": ([_P] * 8 + [_I] * 11 + [_P], _I),
+    # q, k_pool, v_pool, tables, q_pos0, out, B, Hq, Hkv, Sq, D, BS, Wp, N,
+    # intmax, stream
+    "smx_paged_prefill_tc": ([_P] * 6 + [_I] * 9 + [_P], _I),
     # q, k, v, out, m, d, B, Hq, Hkv, Sq, Sk, D, BQ, dtype, causal, intmax,
     # stream
     "smx_flash_fwd": ([_P] * 6 + [_I] * 10 + [_P], _I),
@@ -72,8 +75,10 @@ _SIGNATURES = {
     "smx_softermax_rows_reg": ([_P] * 2 + [_I] * 4 + [_P], _I),
     # x, out, rows, V, dtype, stream
     "smx_softermax_quant": ([_P] * 2 + [_I] * 3 + [_P], _I),
+    "smx_softermax_quant_reg": ([_P] * 2 + [_I] * 3 + [_P], _I),
     "smx_paged_decode_smem": ([_I] * 5, ctypes.c_longlong),
     "smx_paged_prefill_smem": ([_I] * 4, ctypes.c_longlong),
+    "smx_paged_prefill_tc_smem": ([_I] * 2, ctypes.c_longlong),
     "smx_decode_smem": ([_I] * 2, ctypes.c_longlong),
     "smx_decode_bulk_tile": ([_I] * 2, _I),
     "smx_flash_fwd_smem": ([_I] * 3, ctypes.c_longlong),

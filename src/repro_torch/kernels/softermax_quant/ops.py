@@ -1,21 +1,28 @@
-"""Fixed-point Softermax (K7): the CUDA kernel's wrapper, its trainable op
+"""Fixed-point Softermax (K7): the CUDA kernels' wrapper, its trainable op
 and the dispatcher.
 
-``softermax_quant_rows`` launches the hand-written Hopper kernel
-(``csrc/softermax_quant.cu``), which replaces the Pallas TPU kernel
-``repro/kernels/softermax_quant/softermax_quant.py:67`` and equals its
-mirror ``softermax_quant_plain`` bit for bit. It is bound by bytes (see
-the source's note). Its launch count is ``softermax_quant_rows.launches``.
-Like the TPU kernel it takes the Table-I formats only
-(``DEFAULT_BITWIDTHS``), and VectorSize 16; another slice width raises.
+``softermax_quant_rows`` replaces the Pallas TPU kernel
+``repro/kernels/softermax_quant/softermax_quant.py:67`` with one of two
+hand-written Hopper kernels in ``csrc/softermax_quant.cu``, by an explicit
+rule on the row length (``register_route``): rows of up to ``REG_CAP``
+values take the register kernel, which reads each row once into registers
+as the bits of its closed-form numerators and writes it once; longer rows
+take the two-pass kernel, which re-reads the row for its normalize pass.
+Both equal the mirror ``softermax_quant_plain`` bit for bit and are bound
+by bytes (see the source's note). A failed build or launch raises, on
+either route; nothing falls back. Launch counts:
+``softermax_quant_rows.launches`` counts both routes, ``.launches_reg``
+the register route alone. Like the TPU kernel they take the Table-I
+formats only (``DEFAULT_BITWIDTHS``), and VectorSize 16; another slice
+width raises.
 
 ``softermax_quant_op`` is the dispatcher over the last axis of any shape:
-a CUDA tensor goes to the kernel, a CPU tensor to ``softermax_quant_plain``;
-there is no fallback between the two. Where a gradient is wanted either
-runs inside a ``torch.autograd.Function`` whose backward is the
-straight-through vector-Jacobian product of the plain ``softermax_fixed``,
-recomputed from the saved scores — the JAX package has no backward kernel
-for K7 and differentiates ``softermax_fixed`` itself.
+a CUDA tensor goes to the kernels, a CPU tensor to
+``softermax_quant_plain``; there is no fallback between the two. Where a
+gradient is wanted either runs inside a ``torch.autograd.Function`` whose
+backward is the straight-through vector-Jacobian product of the plain
+``softermax_fixed``, recomputed from the saved scores — the JAX package has
+no backward kernel for K7 and differentiates ``softermax_fixed`` itself.
 """
 from __future__ import annotations
 
@@ -27,12 +34,19 @@ from repro_torch.kernels.dtypes import row_code
 from repro_torch.kernels.softermax_quant.plain import softermax_quant_plain
 
 VECTOR_SIZE = 16
+REG_CAP = 2048     # longest row the register kernel holds (csrc REG_CAP)
 
 
-def softermax_quant_rows(x: torch.Tensor, *,
-                         vector_size: int = VECTOR_SIZE) -> torch.Tensor:
-    """K7 on the card: x (rows, V) float32 or bfloat16 → the fixed-point
-    Softermax of each row in x's dtype (every value on the Q(1,7) grid)."""
+def register_route(x: torch.Tensor) -> bool:
+    """THE dispatch rule: rows (the last axis) of up to ``REG_CAP`` values
+    take the register kernel, longer rows the two-pass kernel."""
+    return x.shape[-1] <= REG_CAP
+
+
+def _launch(x: torch.Tensor, vector_size: int = VECTOR_SIZE, reg=None):
+    """One launch of the route ``register_route`` picks, or of the one
+    ``reg`` names (the register or the two-pass kernel); returns the output
+    and whether the register kernel ran."""
     if not x.is_cuda:
         raise ValueError("softermax_quant_rows runs on CUDA tensors only")
     if x.dim() != 2:
@@ -45,17 +59,33 @@ def softermax_quant_rows(x: torch.Tensor, *,
     x = x.contiguous()
     out = torch.empty_like(x)
     if x.numel() == 0:
-        return out
+        return out, None
+    if reg is None:
+        reg = register_route(x)
     lib = build.load_library()
-    err = lib.smx_softermax_quant(build.ptr(x), build.ptr(out), x.shape[0],
-                                  x.shape[1], code,
-                                  build.stream_ptr(x.device))
-    build.check(err, "softermax_quant_rows")
+    fn = lib.smx_softermax_quant_reg if reg else lib.smx_softermax_quant
+    err = fn(build.ptr(x), build.ptr(out), x.shape[0], x.shape[1], code,
+             build.stream_ptr(x.device))
+    build.check(err, "softermax_quant_rows (registers)" if reg else
+                "softermax_quant_rows")
+    return out, reg
+
+
+def softermax_quant_rows(x: torch.Tensor, *,
+                         vector_size: int = VECTOR_SIZE) -> torch.Tensor:
+    """K7 on the card: x (rows, V) float32 or bfloat16 → the fixed-point
+    Softermax of each row in x's dtype (every value on the Q(1,7) grid)."""
+    out, reg = _launch(x, vector_size)
+    if reg is None:                           # nothing to launch
+        return out
+    if reg:
+        softermax_quant_rows.launches_reg += 1
     softermax_quant_rows.launches += 1
     return out
 
 
 softermax_quant_rows.launches = 0
+softermax_quant_rows.launches_reg = 0
 
 
 def _forward(x: torch.Tensor, vector_size: int) -> torch.Tensor:

@@ -20,7 +20,9 @@ its mirror ``softermax_quant_plain`` and within one Q(1,7) step, 2^-7, of
 ``softermax_fixed`` (``kernels/softermax_quant/ref.py``). K5 and K6 are
 held so on both of their routes (the bulk-copy and the earlier kernel; the
 register and the two-pass kernel), and each route's launch counter is
-checked. The per-head
+checked; so are K2 (the tensor-core and the CUDA-core kernel, its bf16
+route held by the same element-wise rule) and K7 (the register and the
+two-pass kernel, both EQUAL to the mirror). The per-head
 paged decode kernel (K8) is held by the same rule (float32 outputs 1e-5,
 bfloat16 outputs 1e-2 of each element's size) to its plain version
 ``paged_decode_single_plain`` and to K1 on the same inputs.
@@ -39,12 +41,15 @@ from repro_torch.kernels.flash_decode_paged import (
     flash_decode_paged_single_op, paged_decode_ref,
     paged_decode_single_plain, paged_decode_split_ref)
 from repro_torch.kernels.flash_prefill_paged import (flash_prefill_paged,
-                                                     paged_prefill_ref)
+                                                     paged_prefill_ref,
+                                                     tc_route)
 from repro_torch.kernels.parity import F32_ATOL, parity_error, tolerance
 from repro_torch.kernels.softermax import (REG_CAP, softermax_op,
                                            softermax_rows, softermax_rows_ref)
+from repro_torch.kernels.softermax_quant import REG_CAP as K7_REG_CAP
 from repro_torch.kernels.softermax_quant import (softermax_quant_plain,
                                                  softermax_quant_ref,
+                                                 softermax_quant_reg_plain,
                                                  softermax_quant_rows)
 from repro_torch.models.attention import quantize_kv
 
@@ -131,6 +136,92 @@ def test_prefill_kernel_matches_plain(cuda_device, kv, T, pos0s, Sq, G, BS):
     torch.cuda.synchronize()
     want = paged_prefill_ref(q, kp, vp, bt, pos, k_scale=ks, v_scale=vs)
     assert (got.float() - want.float()).abs().max().item() <= _tol(qdt)
+
+
+def _prefill_case(rng, device, B, Hkv, G, D, BS, Sq, pos0s, kv="bf16"):
+    """Pools of 2 spare blocks past the tables, tables in a shuffled block
+    order covering every position <= pos0 + Sq - 1, pre-scaled q."""
+    W = -(-(max(pos0s) + Sq) // BS)
+    N = B * W + 2
+    kp, vp, ks, vs = _pools(rng, N, Hkv, BS, D, kv, device)
+    tables = rng.permutation(np.arange(1, N))[:B * W].reshape(B, W)
+    bt = torch.from_numpy(tables.astype(np.int32)).to(device)
+    pos = torch.tensor(pos0s, dtype=torch.int32, device=device)
+    qdt = torch.bfloat16 if kv == "bf16" else torch.float32
+    q = torch.from_numpy(rng.normal(size=(B, G * Hkv, Sq, D))
+                         .astype(np.float32) / np.sqrt(D)).to(device, qdt)
+    return q, kp, vp, ks, vs, bt, pos
+
+
+def _prefill_routes(*args, **kw):
+    """One K2 launch; returns the output and its (launches, tensor-core
+    launches) counts."""
+    before = (flash_prefill_paged.launches, flash_prefill_paged.launches_tc)
+    got = flash_prefill_paged(*args, **kw)
+    torch.cuda.synchronize()
+    return got, (flash_prefill_paged.launches - before[0],
+                 flash_prefill_paged.launches_tc - before[1])
+
+
+@pytest.mark.parametrize("intmax", [True, False])
+@pytest.mark.parametrize("D", [32, 128])
+@pytest.mark.parametrize("BS", [8, 16])
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("Sq", [11, 70])
+@pytest.mark.parametrize("pos0", [0, 37])
+def test_prefill_tensor_core_route_matches_plain(cuda_device, pos0, Sq, G,
+                                                 BS, D, intmax):
+    """K2's tensor-core route over the CPU emulation's geometry grid (two
+    sequences at pos0 and pos0 + 29; covers off the 64-row tile), held to
+    ``paged_prefill_ref`` by the bf16 rule of ``kernels/parity.py``."""
+    rng = np.random.default_rng(pos0 + 3 * Sq + 7 * G + BS + D)
+    q, kp, vp, _, _, bt, pos = _prefill_case(rng, cuda_device, 2, 2, G, D,
+                                             BS, Sq, (pos0, pos0 + 29))
+    assert tc_route(q, kp, vp)
+    got, counts = _prefill_routes(q, kp, vp, bt, pos, intmax=intmax)
+    assert counts == (1, 1)
+    want = paged_prefill_ref(q, kp, vp, bt, pos, intmax=intmax)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    assert parity_error(got, want)[1] <= tolerance(torch.bfloat16)
+
+
+@pytest.mark.parametrize("pos0", [0, 768, 3000])
+def test_prefill_tensor_core_route_full_width_chunk(cuda_device, pos0):
+    """A full-width 256-token chunk of llama3.2-3b (Hq 24, Hkv 8, D 128,
+    BS 16) on the tensor-core route, the table padded to a multiple of 3
+    blocks (``kv_tile_blocks`` 3: 288 and 1,056 positions, off the 64-row
+    tile, at pos0 0 and 768), against ``paged_prefill_ref``."""
+    rng = np.random.default_rng(pos0)
+    q, kp, vp, _, _, bt, pos = _prefill_case(rng, cuda_device, 1, 8, 3, 128,
+                                             16, 256, (pos0,))
+    got, counts = _prefill_routes(q, kp, vp, bt, pos, kv_tile_blocks=3)
+    assert counts == (1, 1)
+    want = paged_prefill_ref(q, kp, vp, bt, pos)
+    assert parity_error(got, want)[1] <= tolerance(torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", ["f32", "int8", "bf16 D36", "bf16 BS4",
+                                  "bf16 BS24", "bf16 pool off 16 bytes"])
+def test_prefill_earlier_route_off_the_rule(cuda_device, case):
+    """Geometries off ``tc_route`` take the CUDA-core kernel (the
+    tensor-core counter stays) and hold its parity."""
+    rng = np.random.default_rng(len(case))
+    kv = {"f32": "f32", "int8": "int8"}.get(case, "bf16")
+    D = 36 if case == "bf16 D36" else 128
+    BS = {"bf16 BS4": 4, "bf16 BS24": 24}.get(case, 16)
+    q, kp, vp, ks, vs, bt, pos = _prefill_case(rng, cuda_device, 2, 2, 3, D,
+                                               BS, 40, (5, 70), kv=kv)
+    if case == "bf16 pool off 16 bytes":
+        flat = torch.empty(kp.numel() + 1, dtype=kp.dtype,
+                           device=cuda_device)
+        flat[1:].copy_(kp.reshape(-1))
+        kp = flat[1:].view(kp.shape)
+    assert not tc_route(q, kp, vp)
+    got, counts = _prefill_routes(q, kp, vp, bt, pos, k_scale=ks,
+                                  v_scale=vs)
+    assert counts == (1, 0)
+    want = paged_prefill_ref(q, kp, vp, bt, pos, k_scale=ks, v_scale=vs)
+    assert parity_error(got, want)[1] <= tolerance(q.dtype)
 
 
 def test_launch_counters_count_launches_only(cuda_device):
@@ -480,6 +571,34 @@ def test_fixed_point_kernel_equals_its_mirror(cuda_device, shape, dtype):
     ref = softermax_quant_ref(x2.float())
     assert (got.float() - ref).abs().max().item() <= 2 ** -7
     assert torch.equal(got.float() * 128, torch.round(got.float() * 128))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("V", [16, 200, 1024, 2048, 2049])
+def test_fixed_point_routes(cuda_device, V, dtype):
+    """K7's two routes: rows of up to REG_CAP values on the register kernel,
+    V 2049 on the two-pass kernel (the register counter stays); each EQUAL
+    to the mirror and to the register route's plain arithmetic, with fully
+    masked, half-masked, -30-shifted and partly masked rows (``_rows``)
+    and a max that climbs by 13.25 per 16-wide slice."""
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    x = _rows((6, V), V + 5, 6.0)
+    cols = torch.arange(V)
+    x[4] = -30.0 + 13.25 * (cols // 16)
+    x = x.to(cuda_device, dt)
+    before = (softermax_quant_rows.launches,
+              softermax_quant_rows.launches_reg)
+    got = softermax_quant_rows(x)
+    torch.cuda.synchronize()
+    assert (softermax_quant_rows.launches - before[0],
+            softermax_quant_rows.launches_reg - before[1]) == \
+        (1, int(V <= K7_REG_CAP))
+    assert got.dtype == dt
+    assert (got.float() - softermax_quant_plain(x).float()).abs().max() \
+        .item() == 0.0
+    assert torch.equal(got, softermax_quant_reg_plain(x))
+    assert (got.float() - softermax_quant_ref(x.float())).abs().max() \
+        .item() <= 2 ** -7
 
 
 def test_softermax_kernels_count_launches_and_take_gradients(cuda_device):

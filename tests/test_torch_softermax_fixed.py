@@ -29,6 +29,16 @@ Within a tolerance:
 * K7's oracle ``softermax_quant_ref`` within one Q(1,7) step (2^-7) of the
   mirror: it quantizes numerators at the running max
   (``kernels/softermax_quant/ref.py``).
+
+K7's register route, held EXACTLY: its closed-form numerator
+``lpw_numerator`` (the Q(6,2) integer k against an integer max m) equals
+the LPW unit of both packages on every k in [-128, 127] and m in
+[-32, 32]; its arithmetic ``softermax_quant_reg_plain`` (the scores as
+integers, numerators from k, the carry on 64 d) equals
+``softermax_quant_plain`` and the Pallas kernel in interpret mode at V of
+16, 200, 1,024 and 2,048, with masked halves and maxima that jump by 13
+and more across slices; its dispatch rule ``register_route`` as a plain
+function.
 """
 import dataclasses
 
@@ -50,9 +60,14 @@ from repro_torch.core import softermax as T
 from repro_torch.kernels.parity import BF16_RTOL, parity_error
 from repro_torch.kernels.softermax import (REG_CAP, register_route,
                                            softermax_op)
-from repro_torch.kernels.softermax_quant import (softermax_quant_op,
+from repro_torch.kernels.softermax_quant import (REG_CAP as K7_REG_CAP)
+from repro_torch.kernels.softermax_quant import (lpw_numerator,
+                                                 softermax_quant_op,
                                                  softermax_quant_plain,
-                                                 softermax_quant_ref)
+                                                 softermax_quant_ref,
+                                                 softermax_quant_reg_plain)
+from repro_torch.kernels.softermax_quant import \
+    register_route as k7_register_route
 
 FLOAT_ATOL = 2e-6
 IMPLS = ["softmax", "base2", "base2_folded", "softermax", "softermax_fixed"]
@@ -263,3 +278,69 @@ def test_softermax_quant_plain_keeps_dtype_and_shape():
     assert got.dtype == torch.bfloat16 and got.shape == t.shape
     want = softermax_quant_plain(t.to(torch.bfloat16).float())
     assert torch.equal(got.float(), want)    # Q(1,7) values: exact in bf16
+
+
+# --- K7's register route: closed-form numerators, its arithmetic, its rule
+
+def test_lpw_numerator_closed_form_equals_the_lpw_unit():
+    """Exhaustive: Q15(c[k & 3] * 2^max((k >> 2) - m, -40)) for every
+    Q(6,2) integer k and every integer max m in [-32, 32] equals both
+    packages' ``lpw_exp2(k / 4 - m)`` (k / 4 - m is exact in float32)."""
+    k = np.arange(-128, 128, dtype=np.int32)[:, None]
+    m = np.arange(-32, 33, dtype=np.int32)[None]
+    t = k.astype(np.float32) / 4 - m.astype(np.float32)
+    got = lpw_numerator(torch.from_numpy(k), torch.from_numpy(m)).numpy()
+    assert got.shape == (256, 65) and got.dtype == np.float32
+    np.testing.assert_array_equal(got,
+                                  TQ.lpw_exp2(torch.from_numpy(t)).numpy())
+    np.testing.assert_array_equal(got, np.asarray(JQ.lpw_exp2(
+        jnp.asarray(t))))
+    # at m = 32: the grid's largest score, and the tail that vanishes
+    # (shifts of 2^-17 and more; at 2^-16, c[0] = 1 is a tie that rounds
+    # to the even 0)
+    assert got[255, 64] == TQ.lpw_exp2(torch.tensor(-0.25)).item() > 0.8
+    assert (got[:, 64][k[:, 0] <= 64] == 0).all()
+    assert (got[:, 64][k[:, 0] >= 68] > 0).all()
+
+
+def _jump_scores(V, seed):
+    """``_scores`` rows (fully masked, half-masked, max <= -17, partly
+    masked) plus rows whose running max jumps by 13 and more across the
+    16-wide slices: one that climbs by 13.25 per slice from -30, one low
+    until its middle slice and then 25 higher."""
+    x = _scores((6, V), seed=seed, scale=6.0)
+    n = -(-V // 16)
+    cols = np.arange(V)
+    x[4] = -30.0 + 13.25 * (cols // 16) + 0.5 * np.sin(cols)
+    x[5] = np.where(cols // 16 < n // 2, -20.0, 5.0) + np.cos(cols)
+    return x
+
+
+@pytest.mark.parametrize("V", [16, 200, 1024, 2048])
+def test_register_route_arithmetic_matches_mirror_and_jax_kernel(V):
+    """The register kernel's arithmetic EQUALS the mirror (f32 and bf16
+    rows) and the Pallas kernel in interpret mode (f32)."""
+    x = _jump_scores(V, seed=V + 1)
+    got = softermax_quant_reg_plain(torch.from_numpy(x))
+    assert torch.equal(got, softermax_quant_plain(torch.from_numpy(x)))
+    want = np.asarray(_jit_unoptimized(lambda a: jax_softermax_quant_op(
+        a, interpret=True))(jnp.asarray(x)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    got_b = softermax_quant_reg_plain(xb)
+    assert got_b.dtype == torch.bfloat16
+    assert torch.equal(got_b, softermax_quant_plain(xb))
+    # a row masked in full is 1/V rounded on the Q(1,7) grid, and every
+    # output is on that grid
+    assert torch.equal(got * 128, torch.round(got * 128))
+
+
+@pytest.mark.parametrize("shape,reg", [
+    ((4, 1), True), ((4, 16), True), ((2, 3, 512), True), ((8, 1024), True),
+    ((4, 2047), True), ((4, 2048), True), ((4, 2049), False),
+    ((2, 4096), False), ((2049, 4), True)])
+def test_fixed_point_register_route_rule(shape, reg):
+    """K7's dispatch rule: rows (the last axis) of up to REG_CAP values take
+    the register kernel, longer rows the two-pass kernel."""
+    assert K7_REG_CAP == 2048
+    assert k7_register_route(torch.zeros(shape)) is reg
