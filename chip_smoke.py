@@ -8,9 +8,13 @@ Phases, in order; any failure raises and exits non-zero:
 1. Device: torch/CUDA versions and the card's name and power limit.
 2. Build: the CUDA kernels from ``src/repro_torch/csrc`` (ptxas report;
    the registers and spills of K5's bulk-copy kernel, K6's and K7's
-   register kernels and K2's tensor-core kernel).
+   register kernels, K2's tensor-core kernel and the bulk-copy kernels of
+   K1 and K8).
 3. Kernel parity at the main path's head geometry (Hq 24, Hkv 8, D 128,
-   block 16): each kernel against its plain PyTorch version.
+   block 16): each kernel against its plain PyTorch version; K1 on both
+   routes (the bulk-copy kernel against its live-lane split version and
+   the earlier kernel against its padded-table one), zombie rows exactly
+   0.
 4. Engine parity at reduced llama3.2-3b in float32: the engine on the card
    (kernels) emits the same greedy streams as the engine on the CPU (plain
    versions); the launch counters equal layers x decode steps (decode
@@ -19,15 +23,21 @@ Phases, in order; any failure raises and exits non-zero:
    one-shot prefill, chunked prefill, a shared-prefix resubmit and an int8
    pool; every request finishes and the pool invariants hold; every K2
    launch of the bf16 chunked runs on the tensor-core route, of the int8
-   run on the earlier kernel. A profile of one chunked run (K2's share of
+   run on the earlier kernel; every K1 launch of every run (bf16 and int8
+   pools) on the bulk-copy route. A profile of one chunked run (K2's share of
    its device time); the chunked run once more on the earlier K2 kernel,
    its greedy streams against the tensor-core route's (near-tie audit) and
    each against the one-shot run's.
 6. Kernel times at the main path's shapes (CUDA events, L2 flushed between
-   launches) beside their bound and their plain versions; for K2, the
-   tensor-core route beside the earlier kernel on the same inputs, the
-   int8 pool (earlier kernel), SDPA on K/V gathered beforehand (a
-   yardstick, gather not timed) and the wrapper's host enqueue time.
+   launches) beside their bound and their plain versions; for K1, the
+   bulk-copy route beside the earlier kernel on the same inputs, the int8
+   pool on both, the wrapper's host enqueue time (mean with the garbage
+   collector on, median with it off: ``benchmarks/decode_host.py``) and
+   the bulk-copy route over a sweep of lane counts, at this shape (bf16
+   and int8) and at eight 8,192-token rows; for K2, the tensor-core route
+   beside the earlier kernel on the same inputs, the int8 pool (earlier
+   kernel), SDPA on K/V gathered beforehand (a yardstick, gather not
+   timed) and the wrapper's host enqueue time.
 7. Flash-attention kernel parity: K3 (o, m, d) and K4 (dq, dk, dv) against
    their plain versions, bf16 (the tensor-core kernels) and fp32 (the
    CUDA-core kernels), IntMax on and off, causal and not, GQA groups 1 and
@@ -64,7 +74,8 @@ Phases, in order; any failure raises and exits non-zero:
    bulk-copy route) and a profile of 5 decode steps; the same prompts
    through the paged engine (one-shot prefill, and 256-token chunks with
    K2 on the tensor-core route and on the earlier kernel), each with a
-   near-tie audit of the first greedy token that differs.
+   near-tie audit of the first greedy token that differs, every K1 launch
+   on the bulk-copy route.
 14. K5's time at the full-width decode shape beside its bound, its plain
    version, the earlier kernel on the same inputs and
    scaled_dot_product_attention.
@@ -112,13 +123,18 @@ Phases, in order; any failure raises and exits non-zero:
    IntMax on and off, GQA groups 1, 3, 4, 8 and 12, blocks of 8 and 16,
    lengths 0, 1, on block edges and odd, garbage table tails; the same at
    the full-width llama3.2-3b geometry (Hq 24, Hkv 8, D 128, block 16);
-   and K8 against K1 on the same inputs at (tile, split) (1, 1) and (4, 2).
+   and K8 against K1 on the same inputs at (tile, split) (1, 1) and (4, 2);
+   every case on the bulk-copy routes of both, and the earlier kernels of
+   both on the same inputs against the same plain versions.
 22. (H) The ported ``decode_paged_bench`` (its measuring function, not its
    gated CLI) at the reference's defaults and at the full-width geometry
    (8 requests, Hq 24, Hkv 8, D 128, one 16,384-token request): per-head
    (K8) and grouped (K1) tok/s, their ratio, the modeled gather-bytes
-   ratio; K8 and K1 launches of each run; each kernel's device time per
-   launch and its wrapper's host enqueue time per call.
+   ratio; K8 and K1 launches of each run (all on the bulk-copy routes);
+   each kernel's device time per launch and its wrapper's host enqueue
+   time per call (mean and median) at step 0, both routes of each on the
+   same inputs; at full width, K1's bulk-copy route over a sweep of lane
+   counts (the long row over more lanes).
 23. (I) Autotune at full width: the paged engine with phase 13's weights
    and phase 5's prompts under ``autotune`` off, static and per-step,
    greedy streams held equal or each first difference to the near-tie
@@ -127,8 +143,9 @@ Phases, in order; any failure raises and exits non-zero:
    step: on how many steps the modeled argmin is the measured fastest (a
    reading, not a gate).
 24. (J) K8's time at the phase-22 full-width shape beside its byte bound
-   (K/V read once, as for K1) and its plain version; no PyTorch call
-   computes paged IntMax base-2 attention, so no library time.
+   (K/V read once, as for K1), its plain version and its earlier kernel on
+   the same inputs; no PyTorch call computes paged IntMax base-2
+   attention, so no library time.
 
 Phase 4 also runs one engine with ``attention_impl="flash"``, whose one-shot
 prefill goes through K3.
@@ -191,7 +208,9 @@ def phase_kernel_parity(dev):
     import numpy as np
     import torch
     from repro_torch.kernels.flash_decode_paged import (
-        flash_decode_paged, paged_decode_split_ref)
+        flash_decode_paged, paged_decode_live_split_ref,
+        paged_decode_split_ref)
+    from repro_torch.kernels.flash_decode_paged import ops as k1_ops
     from repro_torch.kernels.flash_prefill_paged import (
         flash_prefill_paged, paged_prefill_ref)
     rng = np.random.default_rng(0)
@@ -210,17 +229,29 @@ def phase_kernel_parity(dev):
         bt, ln = bt.to(dev), torch.from_numpy(lens).to(dev)
         qdt = torch.float32 if kv == "float32" else torch.bfloat16
         q = _rand(rng, (len(lens), Hq, D), D ** -0.5).to(dev, qdt)
+        bulk0 = flash_decode_paged.launches_bulk
         got = flash_decode_paged(q, kp, vp, bt, ln, k_scale=ks, v_scale=vs,
                                  kv_tile_blocks=T, split_k=S)
         torch.cuda.synchronize()
-        want = paged_decode_split_ref(q, kp, vp, bt, ln, k_scale=ks,
-                                      v_scale=vs, kv_tile_blocks=T,
-                                      split_k=S)
-        err = (got.float() - want.float()).abs().max().item()
+        check(flash_decode_paged.launches_bulk == bulk0 + 1,
+              f"decode kernel {kv} T={T} S={S}: not on the bulk-copy route")
+        # the bulk-copy route against its live-lane split version, the
+        # earlier kernel on the same inputs against its padded-table one
+        early = k1_ops._launch(q, kp, vp, bt, ln, ks, vs, True, T, S,
+                               bulk=False)[0]
+        torch.cuda.synchronize()
         tol = F32_ATOL if qdt == torch.float32 else BF16_ATOL
-        check(err <= tol, f"decode kernel {kv} T={T} S={S}: err {err}")
-        check(bool(torch.all(got[0] == 0)), "decode kernel: zombie row")
-        worst[("decode", kv)] = max(worst.get(("decode", kv), 0.0), err)
+        for name, out, want in (
+                ("decode", got, paged_decode_live_split_ref(
+                    q, kp, vp, bt, ln, k_scale=ks, v_scale=vs,
+                    n_lanes=k1_ops.bulk_lanes(q, kp, bt, T, S))),
+                ("decode (earlier kernel)", early, paged_decode_split_ref(
+                    q, kp, vp, bt, ln, k_scale=ks, v_scale=vs,
+                    kv_tile_blocks=T, split_k=S))):
+            err = (out.float() - want.float()).abs().max().item()
+            check(err <= tol, f"{name} kernel {kv} T={T} S={S}: err {err}")
+            check(bool(torch.all(out[0] == 0)), f"{name} kernel: zombie row")
+            worst[(name, kv)] = max(worst.get((name, kv), 0.0), err)
     for kv, C, pos0 in [("bfloat16", 64, 0), ("bfloat16", 64, 768),
                         ("bfloat16", 256, 0), ("bfloat16", 256, 768),
                         ("int8", 256, 768), ("float32", 64, 768)]:
@@ -277,7 +308,9 @@ def _reset_counts():
     from repro_torch.kernels.softermax import softermax_rows
     from repro_torch.kernels.softermax_quant import softermax_quant_rows
     flash_decode_paged.launches = 0
+    flash_decode_paged.launches_bulk = 0
     flash_decode_paged_single.launches = 0
+    flash_decode_paged_single.launches_bulk = 0
     flash_prefill_paged.launches = 0
     flash_prefill_paged.launches_tc = 0
     flash_attention.launches = 0
@@ -327,6 +360,16 @@ def _flash_tc_counts():
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
     return flash_attention.launches_tc, flash_attention_bwd.launches_tc
+
+
+def _check_k1_bulk(label):
+    """Every K1 launch since the counts were reset took the bulk-copy
+    route; returns the launches."""
+    from repro_torch.kernels.flash_decode_paged import flash_decode_paged
+    k1, bulk = flash_decode_paged.launches, flash_decode_paged.launches_bulk
+    check(k1 > 0 and bulk == k1, f"{label}: {bulk} of {k1} K1 launches on "
+                                 "the bulk-copy route")
+    return k1
 
 
 def _counts():
@@ -425,6 +468,7 @@ def _chunked_on_earlier_k2(cfg, params, prompts, max_new, dev, **kw):
         _reset_counts()
         res = _drive(eng, prompts, max_new)[0]
         k2, k2_tc = _counts()[1], flash_prefill_paged.launches_tc
+        _check_k1_bulk("chunked-256 on the earlier K2 kernel")
     finally:
         k2_ops.tc_route = rule
     check(k2 > 0 and k2_tc == 0, f"chunked-256 on the earlier K2 kernel: "
@@ -493,6 +537,7 @@ def phase_full_width(dev):
             res, wall, dec_ms, n_dec, n_chunk = _drive(eng, batch, max_new)
             k1, k2 = _counts()
             k2_tc = flash_prefill_paged.launches_tc
+            _check_k1_bulk(label)
             want_tc = 0 if "int8" in label else k2
             check(k2_tc == want_tc, f"{label}: {k2_tc} of {k2} K2 launches "
                                     f"on the tensor-core route, not "
@@ -519,7 +564,8 @@ def phase_full_width(dev):
                   f"(n={len(dec_ms)}), peak memory "
                   f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
                   f"prefix hits {hits} tokens, launches "
-                  f"decode={k1} prefill={k2} (tensor cores {k2_tc})")
+                  f"decode={k1} (all on the bulk-copy route) prefill={k2} "
+                  f"(tensor cores {k2_tc})")
             if label == "chunked-256":
                 main_counts = (k1, k2)
             if label in ("one-shot", "chunked-256"):
@@ -628,6 +674,37 @@ def _time_ms(fn, flush, iters=20):
     return sum(a.elapsed_time(b) for a, b in evs) / iters
 
 
+LANE_SWEEP_SHORT = (1, 2, 3, 4, 5, 6, 8, 12)
+LANE_SWEEP_LONG = (2, 4, 6, 8, 12, 16, 24, 32, 64)
+
+
+def _lane_sweep(q, kp, vp, bt, ln, T, S, counts, flush, ks=None, vs=None):
+    """K1's bulk-copy route at each count of lanes a pair (a layout knob:
+    each count held to the rule's count on the same inputs):
+    {lanes: device ms}."""
+    from repro_torch.kernels.flash_decode_paged import ops as k1_ops
+    from repro_torch.kernels.parity import parity_error, tolerance
+
+    def run(n=None):
+        return k1_ops._launch(q, kp, vp, bt, ln, ks, vs, True, T, S,
+                              bulk=True, lanes=n)[0]
+
+    want = run()
+    out = {}
+    for n in counts:
+        if n > bt.shape[1]:
+            continue
+        held = parity_error(run(n), want)[1]
+        check(held <= tolerance(q.dtype), f"K1 at {n} lanes: checked error "
+                                          f"{held} against the rule's count")
+        out[n] = _time_ms(lambda: run(n), flush, iters=10)
+    return out
+
+
+def _sweep_text(sweep):
+    return ", ".join(f"{n} {ms:.4f}" for n, ms in sweep.items()) + " ms"
+
+
 def phase_kernel_times(dev, main_counts, n_layers):
     import numpy as np
     import torch
@@ -637,7 +714,9 @@ def phase_kernel_times(dev, main_counts, n_layers):
                                                         paged_decode_ref)
     from repro_torch.kernels.flash_prefill_paged import (flash_prefill_paged,
                                                          paged_prefill_ref)
+    from repro_torch.benchmarks.decode_host import host_times
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_decode_paged import ops as k1_ops
     from repro_torch.kernels.flash_prefill_paged import ops as k2_ops
     from repro_torch.kernels.parity import parity_error, tolerance
     rng = np.random.default_rng(1)
@@ -653,20 +732,86 @@ def phase_kernel_times(dev, main_counts, n_layers):
                           .reshape(B, W).astype(np.int32)).to(dev)
     ln = torch.full((B,), L, dtype=torch.int32, device=dev)
     q = _rand(rng, (B, Hq, D), D ** -0.5).to(dev, torch.bfloat16)
-    saved = flash_decode_paged.launches
+    saved = flash_decode_paged.launches, flash_decode_paged.launches_bulk
     got = flash_decode_paged(q, kp, vp, bt, ln)
+    check(flash_decode_paged.launches_bulk == saved[1] + 1,
+          "K1 phase-6 shape: not on the bulk-copy route")
     err = (got.float() - paged_decode_ref(q, kp, vp, bt, ln).float()) \
         .abs().max().item()
+
+    def earlier_k1(*pools):
+        return k1_ops._launch(q, *pools[:2], bt, ln, *pools[2:], True, 1, 1,
+                              bulk=False)[0]
+
+    err_early = (earlier_k1(kp, vp, None, None).float() - got.float()) \
+        .abs().max().item()
     ms = _time_ms(lambda: flash_decode_paged(q, kp, vp, bt, ln), flush)
+    earlier = _time_ms(lambda: earlier_k1(kp, vp, None, None), flush)
     plain = _time_ms(lambda: paged_decode_ref(q, kp, vp, bt, ln), flush)
-    flash_decode_paged.launches = saved     # timing launches do not count
+    ms2 = _time_ms(lambda: flash_decode_paged(q, kp, vp, bt, ln), flush)
+    host = host_times(lambda: flash_decode_paged(q, kp, vp, bt, ln))
+    host_early = host_times(lambda: earlier_k1(kp, vp, None, None))
+    # the int8 pool at the same shape, on both routes
+    kq, vq, ks, vs = _pools(rng, B * W + 1, Hkv, BS, D, "int8", dev)
+    bulk0 = flash_decode_paged.launches_bulk
+    got8 = flash_decode_paged(q, kq, vq, bt, ln, k_scale=ks, v_scale=vs)
+    check(flash_decode_paged.launches_bulk == bulk0 + 1,
+          "K1 int8 pool: not on the bulk-copy route")
+    err8 = (got8.float() - paged_decode_ref(
+        q, kq, vq, bt, ln, k_scale=ks, v_scale=vs).float()).abs().max().item()
+    check(err8 <= BF16_ATOL, f"K1 int8 pool: err {err8}")
+    int8_ms = _time_ms(lambda: flash_decode_paged(
+        q, kq, vq, bt, ln, k_scale=ks, v_scale=vs), flush)
+    int8_early = _time_ms(lambda: earlier_k1(kq, vq, ks, vs), flush)
+    lanes = k1_ops.bulk_lanes(q, kp, bt)
+    sweep = _lane_sweep(q, kp, vp, bt, ln, 1, 1, LANE_SWEEP_SHORT, flush)
+    sweep8 = _lane_sweep(q, kq, vq, bt, ln, 1, 1, LANE_SWEEP_SHORT, flush,
+                         ks, vs)
+    del kq, vq, ks, vs
+    # eight rows of 8,192 tokens: every row long, a 512-block table
+    L2 = 8192
+    W2 = L2 // BS
+    kl, vl, _, _ = _pools(rng, B * W2 + 1, Hkv, BS, D, "bfloat16", dev)
+    bt2 = torch.from_numpy(rng.permutation(np.arange(1, B * W2 + 1))
+                           .reshape(B, W2).astype(np.int32)).to(dev)
+    ln2 = torch.full((B,), L2, dtype=torch.int32, device=dev)
+    lanes2 = k1_ops.bulk_lanes(q, kl, bt2)
+    sweep2 = _lane_sweep(q, kl, vl, bt2, ln2, 1, 1, LANE_SWEEP_LONG, flush)
+    del kl, vl
+    flash_decode_paged.launches, flash_decode_paged.launches_bulk = saved
     nbytes = (2 * B * L * Hkv * D * 2 + 2 * q.numel() * 2 + bt.numel() * 4
               + B * 4)
+    nbytes8 = nbytes - 2 * B * L * Hkv * D + 2 * B * L * Hkv * 4
     flops = 4 * B * Hq * L * D
-    out.append(_row("flash_decode_paged", "flash_decode_paged.cu",
-                    "src/repro/kernels/flash_decode_paged/"
-                    "flash_decode_paged.py:150", main_counts[0], n_layers,
-                    err, ms, plain, nbytes, flops))
+    row = _row("flash_decode_paged", "flash_decode_paged_bulk.cu",
+               "src/repro/kernels/flash_decode_paged/"
+               "flash_decode_paged.py:150", main_counts[0], n_layers,
+               err, ms, plain, nbytes, flops)
+    bound8 = nbytes8 / HBM_BYTES_PER_S * 1e3
+    print(f"[6] K1 at B {B}, len {L}, Hq {Hq}, Hkv {Hkv}, D {D}, BS {BS} "
+          f"(tile 1, split 1; {row['bound_ms']:.4f} ms bound by bytes): "
+          f"bulk-copy route {ms:.4f} / {ms2:.4f} ms (max |err| vs plain "
+          f"{err:.3g}), earlier kernel on the same inputs {earlier:.4f} ms "
+          f"(vs the bulk-copy route {err_early:.3g}); int8 pool bulk-copy "
+          f"{int8_ms:.4f} ms (earlier {int8_early:.4f}; bound "
+          f"{bound8:.4f}; vs plain {err8:.3g}); plain {plain:.4f} ms; "
+          f"wrapper host enqueue per call: mean of 20 {host[0] * 1e3:.1f} "
+          f"us (collector on), median {host[1] * 1e3:.1f} us (collector "
+          f"off); the earlier kernel through the same wrapper "
+          f"{host_early[0] * 1e3:.1f} / {host_early[1] * 1e3:.1f} us")
+    print(f"[6] K1 bulk-copy route by lanes a pair at this shape (the rule "
+          f"gives {lanes}): bf16 {_sweep_text(sweep)}; int8 "
+          f"{_sweep_text(sweep8)}")
+    print(f"[6] K1 bulk-copy route by lanes a pair at {B} rows of {L2} "
+          f"tokens (table {W2} blocks, bf16; the rule gives {lanes2}): "
+          f"{_sweep_text(sweep2)}")
+    row.update(earlier_ms=earlier, int8_ms=int8_ms,
+               int8_earlier_ms=int8_early, int8_bound_ms=bound8,
+               host_enqueue_ms=host[0], host_enqueue_median_ms=host[1],
+               host_enqueue_earlier_ms=host_early[0],
+               host_enqueue_earlier_median_ms=host_early[1], lanes=lanes,
+               ms_by_lanes=sweep, int8_ms_by_lanes=sweep8)
+    out.append(row)
 
     # K2: one 256-token chunk at pos0 = 768, bf16 pool: the tensor-core
     # route, the earlier kernel on the same inputs, the int8 pool (earlier
@@ -698,12 +843,12 @@ def phase_kernel_times(dev, main_counts, n_layers):
     earlier = _time_ms(lambda: earlier_k2(kp, vp, None, None), flush)
     plain = _time_ms(lambda: paged_prefill_ref(q, kp, vp, bt, p0), flush)
     ms2 = _time_ms(lambda: flash_prefill_paged(q, kp, vp, bt, p0), flush)
-    host = _host_ms(lambda: flash_prefill_paged(q, kp, vp, bt, p0))
+    host = host_times(lambda: flash_prefill_paged(q, kp, vp, bt, p0))
     # of which the C entry alone: three tensor maps encoded, the launch
     out_c = torch.empty_like(q)
     c_args = [build.ptr(t) for t in (q, kp, vp, bt, p0, out_c)] + [
         1, Hq, Hkv, C, D, BS, W, W + 1, 1, build.stream_ptr(q.device)]
-    host_c = _host_ms(lambda: build.check(
+    host_c = host_times(lambda: build.check(
         build.load_library().smx_paged_prefill_tc(*c_args), "K2 C entry"))
     # the int8 pool at the same shape: the earlier kernel's route
     kq, vq, ks, vs = _pools(rng, W + 1, Hkv, BS, D, "int8", dev)
@@ -741,15 +886,17 @@ def phase_kernel_times(dev, main_counts, n_layers):
           f"pool (earlier kernel) {int8_ms:.4f} ms (checked {held8:.3g}); "
           f"plain {plain:.4f} ms; SDPA on pre-gathered K/V (gather not "
           f"timed) {sdpa_ms:.4f} ms (vs K2 {sdpa_err:.3g}); wrapper host "
-          f"enqueue {host * 1e3:.1f} us per call, of which the C entry "
-          f"(three tensor maps encoded, the launch) {host_c * 1e3:.1f} us")
+          f"enqueue per call {host[0] * 1e3:.1f} us mean (collector on), "
+          f"{host[1] * 1e3:.1f} us median (collector off), of which the C "
+          f"entry (three tensor maps encoded, the launch) "
+          f"{host_c[0] * 1e3:.1f} / {host_c[1] * 1e3:.1f} us")
     row = _row("flash_prefill_paged", "flash_prefill_paged_tc.cu",
                "src/repro/kernels/flash_prefill_paged/"
                "flash_prefill_paged.py:136", main_counts[1], n_layers,
                err, ms, plain, nbytes, flops)
     row.update(earlier_ms=earlier, int8_earlier_ms=int8_ms,
-               sdpa_pregathered_ms=sdpa_ms, host_enqueue_ms=host,
-               host_c_entry_ms=host_c)
+               sdpa_pregathered_ms=sdpa_ms, host_enqueue_ms=host[0],
+               host_enqueue_median_ms=host[1], host_c_entry_ms=host_c[0])
     out.append(row)
     return out
 
@@ -1059,6 +1206,13 @@ def _ptxas_kernels(report, sources):
                     kern, dt, a, b = short.groups()
                     name = (f"{kern}<{'bf16' if dt != 'f' else 'f32'}, {a}, "
                             f"{b}>")
+                short = re.search(r"paged_decode_bulk_kernelI(13__nv_bfloat16"
+                                  r"|f|a)Li(\d+)E", name)
+                if short:
+                    dt, gb = short.groups()
+                    dt = {"f": "f32", "a": "int8"}.get(dt, "bf16")
+                    name = (f"{sec.split(chr(10), 1)[0].strip()}: "
+                            f"paged_decode_bulk_kernel<{dt}, {gb}>")
                 for short in ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel",
                               "flash_bwd_dq_tc_kernel",
                               "paged_prefill_tc_kernel"):
@@ -1497,8 +1651,10 @@ def phase_static_full_width(dev):
                            num_blocks=B * (max_len // 16 + 1) + 1,
                            max_batch=B, max_len=max_len, device=dev)
     p_logits = _paged_logits(eng)
+    _reset_counts()
     handles = [eng.submit(p, max_new) for p in prompts]
     res = eng.run()
+    k1 = _check_k1_bulk("paged one-shot (phase 13)")
     paged = [res[h.req_id].tokens for h in handles]
     p_logits = {(i, t): p_logits[h.req_id, t] for i, h in enumerate(handles)
                 for t in range(max_new)}
@@ -1508,7 +1664,7 @@ def phase_static_full_width(dev):
     n_equal = sum(tokens[b].tolist() == paged[b] for b in range(B))
     print(f"[13] static vs paged engine (bf16, one-shot prefill): "
           f"{share:.3f} of greedy tokens equal, {n_equal}/{B} streams "
-          f"equal")
+          f"equal; K1 launches {k1}, all on the bulk-copy route")
     for line in lines:
         print("[13] near-tie audit: " + line)
     del eng, p_logits
@@ -1523,6 +1679,7 @@ def phase_static_full_width(dev):
     _reset_counts()
     res = _drive(eng, prompts, max_new)[0]
     k2, k2_tc = _counts()[1], flash_prefill_paged.launches_tc
+    _check_k1_bulk("paged chunked-256 (phase 13)")
     check(k2 == k2_tc == L * B * (P // 256),
           f"paged chunked-256: K2 launches {k2}, {k2_tc} on the tensor "
           f"cores")
@@ -2162,6 +2319,21 @@ def _set_paged_counts(counts):
     flash_decode_paged.launches, flash_decode_paged_single.launches = counts
 
 
+def _paged_bulk_counts():
+    """(K1, K8) launches on the bulk-copy routes."""
+    from repro_torch.kernels.flash_decode_paged import (
+        flash_decode_paged, flash_decode_paged_single)
+    return (flash_decode_paged.launches_bulk,
+            flash_decode_paged_single.launches_bulk)
+
+
+def _set_paged_bulk_counts(counts):
+    from repro_torch.kernels.flash_decode_paged import (
+        flash_decode_paged, flash_decode_paged_single)
+    (flash_decode_paged.launches_bulk,
+     flash_decode_paged_single.launches_bulk) = counts
+
+
 def _single_case(rng, dev, B, Hq, Hkv, D, BS, W, lens, kv, qdt):
     """Inputs of one K8 case: pools, a table whose entries past each row's
     block cover are garbage (other rows' blocks), lengths and queries."""
@@ -2185,8 +2357,10 @@ def phase_single_parity(dev):
     from repro_torch.kernels.flash_decode_paged import (
         flash_decode_paged, flash_decode_paged_single,
         paged_decode_single_plain)
+    from repro_torch.kernels.flash_decode_paged import ops as paged_ops
     from repro_torch.kernels.parity import parity_error, tolerance
     saved = _paged_counts()
+    bulk0 = _paged_bulk_counts()
     rng = np.random.default_rng(21)
     worst, n, n_k1 = {}, 0, 0
     kinds = [("float32", torch.float32), ("bfloat16", torch.bfloat16),
@@ -2205,18 +2379,21 @@ def phase_single_parity(dev):
                 rng, dev, B, G * Hkv, Hkv, D, BS, W, lens, kv, qdt)
             got = flash_decode_paged_single(q, kp, vp, bt, ln, k_scale=ks,
                                             v_scale=vs, intmax=intmax)
+            early = paged_ops._launch_single(q, kp, vp, bt, ln, ks, vs,
+                                             intmax, bulk=False)[0]
             torch.cuda.synchronize()
             want = paged_decode_single_plain(q, kp, vp, bt, ln, k_scale=ks,
                                              v_scale=vs, intmax=intmax)
-            err, held = parity_error(got, want)
             label = f"{kv}/q {str(qdt)[6:]}"
-            check(got.dtype == qdt and held <= tolerance(qdt),
-                  f"K8 {label} G={G} BS={BS} W={W} intmax={intmax}: max "
-                  f"|err| {err}, held {held}")
-            check(bool(torch.all(got[0] == 0)), "K8: a row of length 0 is "
-                                                "not 0")
-            w = worst.get(label, (0.0, 0.0))
-            worst[label] = (max(w[0], err), max(w[1], held))
+            for route, out in (("", got), (" (earlier kernel)", early)):
+                err, held = parity_error(out, want)
+                check(out.dtype == qdt and held <= tolerance(qdt),
+                      f"K8{route} {label} G={G} BS={BS} W={W} intmax="
+                      f"{intmax}: max |err| {err}, held {held}")
+                check(bool(torch.all(out[0] == 0)), f"K8{route}: a row of "
+                                                    "length 0 is not 0")
+                w = worst.get(label + route, (0.0, 0.0))
+                worst[label + route] = (max(w[0], err), max(w[1], held))
             n += 1
             if G > 8:                         # K1 holds groups up to 8
                 continue
@@ -2232,35 +2409,20 @@ def phase_single_parity(dev):
                 w = worst.get(label + " vs K1", (0.0, 0.0))
                 worst[label + " vs K1"] = (max(w[0], err1), max(w[1], held1))
                 n_k1 += 1
+    bulk = [a - b for a, b in zip(_paged_bulk_counts(), bulk0)]
+    check(bulk == [n_k1, n], f"K8 cases: {bulk} of K1 {n_k1} and K8 {n} "
+                             "launches on the bulk-copy routes")
     _set_paged_counts(saved)              # comparison launches do not count
+    _set_paged_bulk_counts(bulk0)
     for label, (err, held) in sorted(worst.items()):
         print(f"[21] K8 {'' if 'K1' in label else 'vs plain '}{label}: max "
               f"|err| {err:.3g}, checked error {held:.3g}")
-    print(f"[21] {n} K8 cases against its plain version, {n_k1} against K1 "
+    print(f"[21] {n} K8 cases against its plain version on both routes "
+          f"(every one on the bulk-copy route, and the earlier kernel on the "
+          f"same inputs), {n_k1} against K1 on its bulk-copy route "
           f"(tile, split) (1, 1) and (4, 2); tolerances: fp32 outputs "
           f"{tolerance(torch.float32)} absolute, bf16 outputs "
           f"{tolerance(torch.bfloat16)} of each element's size")
-
-
-# the benches' full-width geometry: llama3.2-3b's heads, one 16,384-token
-# request and seven of up to 1,024
-FULL_GEOMETRY = ["--requests", "8", "--hq", "24", "--hkv", "8",
-                 "--head-dim", "128", "--block-size", "16", "--long-blocks",
-                 "1024", "--short-blocks-max", "64"]
-FULL_BENCH = FULL_GEOMETRY + ["--steps", "4", "--tile-blocks", "4",
-                              "--split-k", "2"]
-
-
-def _host_ms(fn, iters=20):
-    """Mean host time to enqueue one call of ``fn`` (no device wait)."""
-    import torch
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    host = (time.perf_counter() - t0) * 1e3 / iters
-    torch.cuda.synchronize()
-    return host
 
 
 def phase_decode_bench(dev, card):
@@ -2272,8 +2434,10 @@ def phase_decode_bench(dev, card):
     import numpy as np
     import torch
     from repro_torch.benchmarks import decode_paged_bench as bench
+    from repro_torch.benchmarks.decode_host import FULL_BENCH, host_times
     from repro_torch.kernels.flash_decode_paged import (
-        flash_decode_paged, flash_decode_paged_single)
+        bulk_lanes, flash_decode_paged, flash_decode_paged_single)
+    from repro_torch.kernels.flash_decode_paged import ops as paged_ops
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
     out = None
     for label, argv in (("defaults", []), ("full-width", FULL_BENCH)):
@@ -2285,6 +2449,9 @@ def phase_decode_bench(dev, card):
         want = args.steps * (1 + args.repeats)
         check(k8 == want and k1 == want,
               f"decode bench {label}: launches K8 {k8}, K1 {k1} != {want}")
+        check(_paged_bulk_counts() == (k1, k8),
+              f"decode bench {label}: bulk-copy launches "
+              f"{_paged_bulk_counts()} of K1 {k1}, K8 {k8}")
         toks = args.requests * args.steps
         dma = meta["gather_bytes_per_token_per_layer"]
         print(f"[22] decode_paged_bench {label} (hq {args.hq}, hkv "
@@ -2300,17 +2467,32 @@ def phase_decode_bench(dev, card):
         wl = bench.workload(args, np.random.default_rng(args.seed), dev)
         q, kp, vp, bt = wl["q"], wl["kp"], wl["vp"], wl["bt"]
         ln = wl["lens_steps"][0]
-        saved = _paged_counts()
+        saved, saved_bulk = _paged_counts(), _paged_bulk_counts()
+        T, S = args.tile_blocks, args.split_k
         for name, fn in (
                 ("K8", lambda: flash_decode_paged_single(q, kp, vp, bt, ln)),
+                ("K8 earlier kernel", lambda: paged_ops._launch_single(
+                    q, kp, vp, bt, ln, None, None, True, bulk=False)),
                 ("K1", lambda: flash_decode_paged(
-                    q, kp, vp, bt, ln, kv_tile_blocks=args.tile_blocks,
-                    split_k=args.split_k))):
+                    q, kp, vp, bt, ln, kv_tile_blocks=T, split_k=S)),
+                ("K1 earlier kernel", lambda: paged_ops._launch(
+                    q, kp, vp, bt, ln, None, None, True, T, S,
+                    bulk=False))):
+            host = host_times(fn)
             print(f"[22] decode_paged_bench {label} step 0: {name} device "
                   f"{_time_ms(fn, flush):.4f} ms per launch (L2 flushed, "
-                  f"device wait before), host enqueue {_host_ms(fn):.4f} ms "
-                  f"per call")
+                  f"device wait before), host enqueue per call {host[0]:.4f} "
+                  f"ms mean of 20 (collector on), {host[1]:.4f} ms median "
+                  f"(collector off)")
+        if label == "full-width":
+            # the long row over more lanes: a layout knob
+            sweep = _lane_sweep(q, kp, vp, bt, ln, T, S, LANE_SWEEP_LONG,
+                                flush)
+            print(f"[22] decode_paged_bench {label} step 0: K1 bulk-copy "
+                  f"route by lanes a pair (the rule gives "
+                  f"{bulk_lanes(q, kp, bt, T, S)}): {_sweep_text(sweep)}")
         _set_paged_counts(saved)          # timing launches do not count
+        _set_paged_bulk_counts(saved_bulk)
         del wl, q, kp, vp, bt
         if label == "full-width":
             out = (args, k8)
@@ -2348,6 +2530,7 @@ def phase_autotune(dev, card):
     import numpy as np
     import torch
     from repro_torch.benchmarks import autotune_bench
+    from repro_torch.benchmarks.decode_host import FULL_GEOMETRY
     from repro_torch.kernels.flash_decode_paged import flash_decode_paged
     from repro_torch.serve.autotune import GridPlanner
     cfg, params, _ = _full_width_llama(dev)
@@ -2455,22 +2638,35 @@ def phase_single_times(dev, bench_args, launches):
     from repro_torch.benchmarks import decode_paged_bench as bench
     from repro_torch.kernels.flash_decode_paged import (
         flash_decode_paged_single, paged_decode_single_plain)
+    from repro_torch.kernels.flash_decode_paged import ops as paged_ops
     from repro_torch.kernels.parity import parity_error, tolerance
     wl = bench.workload(bench_args, np.random.default_rng(bench_args.seed),
                         dev)
     q, kp, vp, bt = wl["q"], wl["kp"], wl["vp"], wl["bt"]
     ln = wl["lens_steps"][0]
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
-    saved = _paged_counts()
+    saved, saved_bulk = _paged_counts(), _paged_bulk_counts()
     got = flash_decode_paged_single(q, kp, vp, bt, ln)
-    err, held = parity_error(got, paged_decode_single_plain(q, kp, vp, bt,
-                                                            ln))
+    check(_paged_bulk_counts()[1] == saved_bulk[1] + 1,
+          "K8 full-width shape: not on the bulk-copy route")
+    want = paged_decode_single_plain(q, kp, vp, bt, ln)
+    err, held = parity_error(got, want)
     check(held <= tolerance(q.dtype), f"K8 full-width shape: {err}")
+
+    def earlier_k8():
+        return paged_ops._launch_single(q, kp, vp, bt, ln, None, None, True,
+                                        bulk=False)[0]
+
+    err_early = parity_error(earlier_k8(), want)[0]
     ms = _time_ms(lambda: flash_decode_paged_single(q, kp, vp, bt, ln),
                   flush)
+    earlier = _time_ms(earlier_k8, flush, iters=10)
     plain = _time_ms(lambda: paged_decode_single_plain(q, kp, vp, bt, ln),
                      flush, iters=2)
+    ms2 = _time_ms(lambda: flash_decode_paged_single(q, kp, vp, bt, ln),
+                   flush)
     _set_paged_counts(saved)              # timing launches do not count
+    _set_paged_bulk_counts(saved_bulk)
     B, Hq, D = q.shape
     Hkv = kp.shape[1]
     rows = int(ln.sum().item())
@@ -2479,15 +2675,18 @@ def phase_single_times(dev, bench_args, launches):
     # the tables and lengths
     nbytes = (2 * rows * Hkv * D * 4 + 2 * q.numel() * 4 + bt.numel() * 4
               + B * 4)
-    row = _row("flash_decode_paged_single", "flash_decode_paged_single.cu",
+    row = _row("flash_decode_paged_single",
+               "flash_decode_paged_single_bulk.cu",
                "src/repro/kernels/flash_decode_paged/"
                "flash_decode_paged.py:302", launches, 1, err, ms, plain,
                nbytes, 4 * Hq * rows * D)
+    row.update(earlier_ms=earlier)
     print(f"[24] K8 at the full-width bench shape (B {B}, Hq {Hq}, Hkv "
           f"{Hkv}, D {D}, {rows} cached rows, table width {bt.shape[1]}, "
-          f"f32 pool): {ms:.4f} ms (bound {row['bound_ms']:.4f} ms by "
-          f"{row['bound_by']}, plain {plain:.4f} ms), max |err| vs plain "
-          f"{err:.3g}")
+          f"f32 pool): bulk-copy route {ms:.4f} / {ms2:.4f} ms (bound "
+          f"{row['bound_ms']:.4f} ms by {row['bound_by']}, earlier kernel on "
+          f"the same inputs {earlier:.4f} ms, plain {plain:.4f} ms), max "
+          f"|err| vs plain {err:.3g} (earlier kernel {err_early:.3g})")
     return [row]
 
 
@@ -2535,7 +2734,9 @@ def main() -> int:
     for name, regs, spill in _ptxas_kernels(
             build.ptxas_report(), ("flash_decode_bulk.cu", "softermax.cu",
                                    "softermax_quant.cu",
-                                   "flash_prefill_paged_tc.cu")):
+                                   "flash_prefill_paged_tc.cu",
+                                   "flash_decode_paged_bulk.cu",
+                                   "flash_decode_paged_single_bulk.cu")):
         print(f"[2] ptxas {name}: {regs} registers, {spill}")
 
     phase_kernel_parity(dev)

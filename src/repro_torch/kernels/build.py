@@ -39,9 +39,14 @@ _SIGNATURES = {
     # q, k_pool, v_pool, k_scale, v_scale, tables, lengths, acc, m, d, out,
     # B, Hq, Hkv, D, BS, Wp, T, S, spl, q_dtype, kv_dtype, intmax, stream
     "smx_paged_decode": ([_P] * 11 + [_I] * 12 + [_P], _I),
+    # q, k_pool, v_pool, k_scale, v_scale, tables, lengths, acc, m, d,
+    # tickets, out, B, Hq, Hkv, D, BS, W, T, n_lanes, q_dtype, kv_dtype,
+    # intmax, stream
+    "smx_paged_decode_bulk": ([_P] * 12 + [_I] * 11 + [_P], _I),
     # q, k_pool, v_pool, k_scale, v_scale, tables, lengths, out,
     # B, Hq, Hkv, D, BS, nb, q_dtype, kv_dtype, intmax, stream
     "smx_paged_decode_single": ([_P] * 8 + [_I] * 9 + [_P], _I),
+    "smx_paged_decode_single_bulk": ([_P] * 8 + [_I] * 9 + [_P], _I),
     # q, k_pool, v_pool, k_scale, v_scale, tables, q_pos0, out,
     # B, Hq, Hkv, Sq, D, BS, Wp, BQ, q_dtype, kv_dtype, intmax, stream
     "smx_paged_prefill": ([_P] * 8 + [_I] * 11 + [_P], _I),
@@ -77,6 +82,8 @@ _SIGNATURES = {
     "smx_softermax_quant": ([_P] * 2 + [_I] * 3 + [_P], _I),
     "smx_softermax_quant_reg": ([_P] * 2 + [_I] * 3 + [_P], _I),
     "smx_paged_decode_smem": ([_I] * 5, ctypes.c_longlong),
+    # G, D, BS, kv_dtype, T
+    "smx_paged_decode_bulk_resident": ([_I] * 5, _I),
     "smx_paged_prefill_smem": ([_I] * 4, ctypes.c_longlong),
     "smx_paged_prefill_tc_smem": ([_I] * 2, ctypes.c_longlong),
     "smx_decode_smem": ([_I] * 2, ctypes.c_longlong),
@@ -190,5 +197,10 @@ def ptr(t) -> Optional[int]:
 
 
 def stream_ptr(device) -> int:
+    """The current stream of a CUDA ``device`` as the raw ``cudaStream_t``
+    (one call into the runtime, no Stream object built)."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -91,10 +91,11 @@ def _earlier_fits(G: int, D: int) -> bool:
 _scratch = {}   # (device, stream) -> (float states, merge tickets)
 
 
-def _lane_scratch(device, stream: int, floats: int, pairs: int):
-    """The split lanes' states and the bulk route's merge tickets, kept per
-    device and stream and grown on demand: launches on one stream run in
-    order, and the kernel leaves every ticket at 0."""
+def lane_scratch(device, stream: int, floats: int, pairs: int):
+    """The split lanes' states and the bulk routes' merge tickets (this
+    kernel's and the paged decode's, K1), kept per device and stream and
+    grown on demand: launches on one stream run in order, and both kernels
+    leave every ticket at 0."""
     buf = _scratch.get((device, stream))
     if buf is None or buf[0].numel() < floats or buf[1].numel() < pairs:
         old = (0, 0) if buf is None else (buf[0].numel(), buf[1].numel())
@@ -154,7 +155,7 @@ def _launch(q, k, v, lengths, intmax, bulk=None):
         lengths.is_contiguous() else lengths.to(torch.int32).contiguous()
     stream = build.stream_ptr(q.device)
     states = pairs * n * G           # acc (states x D), then m, then d
-    floats, tickets = _lane_scratch(q.device, stream, states * (D + 2),
+    floats, tickets = lane_scratch(q.device, stream, states * (D + 2),
                                     pairs)
     acc = floats.data_ptr()
     out = torch.empty_like(q)

@@ -13,6 +13,14 @@ partial ``(m, d, acc)`` in closed form, merged with ``softermax_merge`` —
 including the identity ``(NEG_INF, 0, 0)`` of partitions that sit wholly
 past a sequence's length.
 
+``lane_blocks`` is THE lane layout of the bulk-copy route
+(``csrc/paged_decode_bulk.cuh``): lanes split a row's LIVE blocks
+(``ceil(len / BS)``, at most the table width) in equal shares of whole
+blocks, not the padded table; ``paged_decode_live_split_ref`` is the split
+version with that layout on the caller's count of lanes, merged in order
+with ``softermax_merge``. How many lanes the card launches is the kernel
+wrapper's choice (``ops.live_lanes``).
+
 ``decode_gather_oracle`` MEASURES the gather traffic of one decode launch
 as the TPU kernel moves it (every padded table entry, block 0 included),
 off the shapes of the gathers it actually runs; the analytic model
@@ -38,6 +46,20 @@ def split_layout(W: int, kv_tile_blocks: int, split_k: int):
     S = max(1, min(split_k, tiles))
     spl = -(-tiles // S)
     return T, S, spl, S * spl * T
+
+
+def lane_blocks(length: int, BS: int, W: int, n: int):
+    """The blocks ``[start, stop)`` each of ``n`` lanes walks of a row of
+    ``length`` tokens in a table of ``W`` blocks: equal shares of the row's
+    live blocks, the first ``live % n`` lanes one block more. The kernel
+    computes the same on the card from ``lengths[b]``."""
+    live = min(-(-max(length, 0) // BS), W)
+    base, rem = divmod(live, n)
+    out = []
+    for j in range(n):
+        start = j * base + min(j, rem)
+        out.append((start, start + base + (j < rem)))
+    return out
 
 
 def pad_table(block_tables: torch.Tensor, Wp: int) -> torch.Tensor:
@@ -154,3 +176,48 @@ def paged_decode_split_ref(q, k_pool, v_pool, block_tables, lengths, *,
     _, d2, acc2 = softermax_merge(m, d, acc, axis=3)
     o = softermax_finalize(acc2, d2)                     # (B, Hkv, G, D)
     return o.reshape(B, Hq, D).to(q.dtype)
+
+
+def paged_decode_live_split_ref(q, k_pool, v_pool, block_tables, lengths, *,
+                                n_lanes: int = 1, k_scale=None, v_scale=None,
+                                intmax: bool = True) -> torch.Tensor:
+    """Lane-structured version of the bulk-copy route: each of the
+    ``n_lanes`` lanes reduces its share of the
+    row's live blocks (``lane_blocks``) to a partial ``(m, d, acc)`` in
+    closed form — the merge identity ``(NEG_INF, 0, 0)`` where it holds no
+    block — and the lanes merge with ``softermax_merge``. Table entries past
+    a row's live blocks are never read. Equal to ``paged_decode_ref`` up to
+    fp reduction order, and a row of length 0 is 0."""
+    B, Hq, D = q.shape
+    _, Hkv, BS, _ = k_pool.shape
+    W = block_tables.shape[1]
+    G, n = Hq // Hkv, n_lanes
+    dev = q.device
+    lens = lengths.to(device=dev, dtype=torch.int64).clamp(0, W * BS)
+    live = (lens + BS - 1) // BS                         # (B,) live blocks
+    blk = torch.arange(W, device=dev)[None]              # (1, W)
+    bt = torch.where(blk < live[:, None], block_tables.to(dev).long(),
+                     torch.zeros_like(blk))
+    k = gather_kv_dequant(k_pool, k_scale, bt).float()   # (B, Hkv, W*BS, D)
+    v = gather_kv_dequant(v_pool, v_scale, bt).float()
+    # lane of every block: the first rem lanes hold base + 1 blocks
+    base, rem = (live // n)[:, None], (live % n)[:, None]
+    big = rem * (base + 1)
+    lane = torch.where(blk < big, blk // (base + 1),
+                       rem + (blk - big) // base.clamp(min=1))
+    lane = lane.repeat_interleave(BS, dim=1)             # (B, W*BS)
+    valid = torch.arange(W * BS, device=dev)[None] < lens[:, None]
+    own = valid[:, None] & (lane[:, None] ==
+                            torch.arange(n, device=dev)[None, :, None])
+    own = own[:, None, None]                             # (B, 1, 1, n, C)
+    s = torch.einsum("bhgd,bhcd->bhgc", q.reshape(B, Hkv, G, D).float(),
+                     k)[:, :, :, None]                   # (B, Hkv, G, 1, C)
+    s = torch.where(own, s, torch.full_like(s, NEG_INF))
+    m = torch.amax(s, dim=-1, keepdim=True)              # (B, Hkv, G, n, 1)
+    m = torch.ceil(m) if intmax else m
+    p = torch.where(own, torch.exp2(s - m), torch.zeros_like(s))
+    d = torch.sum(p, dim=-1, keepdim=True)
+    m = torch.where(d > 0, m, torch.full_like(m, NEG_INF))
+    acc = torch.einsum("bhgnc,bhcd->bhgnd", p, v)
+    _, d2, acc2 = softermax_merge(m, d, acc, axis=3)
+    return softermax_finalize(acc2, d2).reshape(B, Hq, D).to(q.dtype)

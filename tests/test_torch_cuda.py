@@ -25,7 +25,11 @@ route held by the same element-wise rule) and K7 (the register and the
 two-pass kernel, both EQUAL to the mirror). The per-head
 paged decode kernel (K8) is held by the same rule (float32 outputs 1e-5,
 bfloat16 outputs 1e-2 of each element's size) to its plain version
-``paged_decode_single_plain`` and to K1 on the same inputs.
+``paged_decode_single_plain`` and to K1 on the same inputs. K1 and K8 are
+held so on both of their routes (the bulk-copy kernels and the earlier
+ones), each route's launch counter checked; K1's bulk-copy route also to
+its split version with the same lane layout
+(``paged_decode_live_split_ref``), its zombie rows exactly 0.
 """
 import numpy as np
 import pytest
@@ -37,9 +41,10 @@ from repro_torch.kernels.flash_attention import (
 from repro_torch.kernels.flash_decode import (bulk_tile_rows, decode_ref,
                                               flash_decode, split_lanes)
 from repro_torch.kernels.flash_decode_paged import (
-    flash_decode_paged, flash_decode_paged_single,
-    flash_decode_paged_single_op, paged_decode_ref,
-    paged_decode_single_plain, paged_decode_split_ref)
+    bulk_lanes, bulk_route, flash_decode_paged, flash_decode_paged_single,
+    flash_decode_paged_single_op, live_lanes, paged_decode_live_split_ref,
+    paged_decode_ref, paged_decode_single_plain, paged_decode_split_ref)
+from repro_torch.kernels.flash_decode_paged import ops as paged_ops
 from repro_torch.kernels.flash_prefill_paged import (flash_prefill_paged,
                                                      paged_prefill_ref,
                                                      tc_route)
@@ -720,3 +725,255 @@ def test_single_decode_kernel_counts_and_dispatch(cuda_device):
     assert (c - a.cpu()).abs().max().item() <= F32_ATOL
     with pytest.raises(ValueError):
         flash_decode_paged_single(*cpu)
+
+
+def _bulk_paged_case(rng, device, kv, G, BS, Hkv, W, lens, D=128,
+                     garbage=True):
+    """K1/K8 inputs: tables in a shuffled block order whose entries past
+    each row's block cover are garbage (other rows' blocks), a zombie row
+    (length 0, table 0) wherever a length is 0."""
+    B = len(lens)
+    N = B * W + 1
+    kp, vp, ks, vs = _pools(rng, N, Hkv, BS, D, kv, device)
+    tables = rng.permutation(np.arange(1, N)).reshape(B, W)
+    for b, ln in enumerate(lens):
+        cover = min(-(-ln // BS), W)
+        if garbage:
+            tables[b, cover:] = rng.integers(0, N, W - cover)
+        if ln == 0:
+            tables[b] = 0
+    bt = torch.from_numpy(tables.astype(np.int32)).to(device)
+    ln = torch.tensor(lens, dtype=torch.int32, device=device)
+    qdt = torch.bfloat16 if kv == "bf16" else torch.float32
+    q = torch.from_numpy(rng.normal(size=(B, G * Hkv, D)).astype(np.float32)
+                         / np.sqrt(D)).to(device, qdt)
+    return q, kp, vp, bt, ln, ks, vs
+
+
+def _k1_routes(*args, **kw):
+    """One K1 launch; returns the output and its (launches, bulk-copy
+    launches) counts."""
+    before = (flash_decode_paged.launches, flash_decode_paged.launches_bulk)
+    got = flash_decode_paged(*args, **kw)
+    torch.cuda.synchronize()
+    return got, (flash_decode_paged.launches - before[0],
+                 flash_decode_paged.launches_bulk - before[1])
+
+
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("G", [1, 2, 3, 8])
+@pytest.mark.parametrize("BS", [16, 24])
+@pytest.mark.parametrize("T", [1, 2, 4])
+@pytest.mark.parametrize("S", [1, 2, 3])
+def test_paged_decode_bulk_route_matches_plain(cuda_device, kv, G, BS, T,
+                                               S):
+    """K1's bulk-copy route against ``paged_decode_ref`` and the split
+    version with its lane layout, at two geometries: 2 KV heads and a
+    9-block table (the rule's S lanes, and 9 lanes of a block each named
+    by ``lanes``), and 16 KV heads over a 40-block table (the larger of S
+    and 2 or 3 lanes, up to 20 blocks a lane, where the ring wraps). Lengths 0 (the zombie row,
+    exactly 0), 1, BS - 1, BS, 17, past half the table and the whole
+    table."""
+    for Hkv, W in ((2, 9), (16, 40)):
+        rng = np.random.default_rng(100 + 9 * T + S + G + Hkv)
+        lens = [0, 1, BS - 1, BS, 17, W * BS // 2 + 5, W * BS - 3, W * BS]
+        q, kp, vp, bt, ln, ks, vs = _bulk_paged_case(
+            rng, cuda_device, kv, G, BS, Hkv, W, lens)
+        assert bulk_route(q, kp, vp, ks, vs)
+        got, counts = _k1_routes(q, kp, vp, bt, ln, k_scale=ks, v_scale=vs,
+                                 kv_tile_blocks=T, split_k=S)
+        assert counts == (1, 1)
+        n = bulk_lanes(q, kp, bt, T, S)
+        want = paged_decode_ref(q, kp, vp, bt, ln, k_scale=ks, v_scale=vs)
+        want_split = paged_decode_live_split_ref(
+            q, kp, vp, bt, ln, n_lanes=n, k_scale=ks, v_scale=vs)
+        tol = _tol(q.dtype)
+        assert got.dtype == q.dtype
+        assert (got[1:].float() - want[1:].float()).abs().max().item() <= tol
+        assert (got.float() - want_split.float()).abs().max().item() <= tol
+        assert torch.all(got[0] == 0)
+        res = paged_ops._resident(q.get_device(), G, 128, BS,
+                                  paged_ops.kv_code(kp.dtype), T)
+        assert n == live_lanes(len(lens) * Hkv, W, S, res)
+        if Hkv == 2:                      # a lane a block, named
+            wide = paged_ops._launch(q, kp, vp, bt, ln, ks, vs, True, T, S,
+                                     bulk=True, lanes=W)[0]
+            want_wide = paged_decode_live_split_ref(
+                q, kp, vp, bt, ln, n_lanes=W, k_scale=ks, v_scale=vs)
+            assert (wide.float() - want_wide.float()).abs().max().item() \
+                <= tol
+            assert torch.all(wide[0] == 0)
+
+
+def test_paged_decode_bulk_resident_blocks(cuda_device):
+    """The lane rule's resident blocks come from the compiled kernel's
+    occupancy: whole SMs' worth, at least one block an SM."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    dev = torch.device(cuda_device).index or 0
+    for G in (1, 3, 8):
+        for kv in (paged_ops.kv_code(torch.bfloat16),
+                   paged_ops.kv_code(torch.int8)):
+            res = paged_ops._resident(dev, G, 128, 16, kv, 1)
+            assert res >= sms and res % sms == 0
+
+
+@pytest.mark.parametrize("intmax", [True, False])
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("D", [64, 256])
+def test_paged_decode_bulk_route_head_dims(cuda_device, intmax, kv, D):
+    """D 64 (8 lanes a row, 4 rows a warp step) and 256 (a row a step),
+    IntMax on and off, a 2,048-token row over the lanes of three pairs
+    (8: a 128-block table at 16 blocks a lane)."""
+    rng = np.random.default_rng(D + intmax)
+    lens = [2048, 0, 33]
+    q, kp, vp, bt, ln, ks, vs = _bulk_paged_case(
+        rng, cuda_device, kv, 4, 16, 1, 128, lens, D=D)
+    got, counts = _k1_routes(q, kp, vp, bt, ln, k_scale=ks, v_scale=vs,
+                             intmax=intmax, split_k=2)
+    assert counts == (1, 1)
+    want = paged_decode_live_split_ref(
+        q, kp, vp, bt, ln, n_lanes=bulk_lanes(q, kp, bt, 1, 2), k_scale=ks,
+        v_scale=vs, intmax=intmax)
+    assert (got.float() - want.float()).abs().max().item() <= _tol(q.dtype)
+    assert torch.all(got[1] == 0)
+
+
+def test_paged_decode_bulk_reads_no_entry_past_the_cover(cuda_device):
+    """Table entries past a row's live blocks point far outside the pool:
+    the bulk-copy routes of K1 and K8 never read them (a read would fault)
+    and equal their outputs on the clean table."""
+    rng = np.random.default_rng(12)
+    lens = [5 * 16 + 3, 0, 16, 40 * 16]
+    q, kp, vp, bt, ln, _, _ = _bulk_paged_case(rng, cuda_device, "bf16", 3,
+                                               16, 2, 40, lens,
+                                               garbage=False)
+    dirty = bt.clone()
+    dirty[0, 6:] = 2 ** 30
+    dirty[1, :] = -(2 ** 30)
+    dirty[2, 1:] = 2 ** 30
+    for fn in (flash_decode_paged, flash_decode_paged_single):
+        a = fn(q, kp, vp, dirty, ln)
+        b = fn(q, kp, vp, bt, ln)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["bf16 D36", "f32 pool off 16 bytes",
+                                  "int8 BS 2", "int8 scales off 16 bytes",
+                                  "f32 BS 128", "bf16 BS 128 D 256"])
+def test_paged_decode_earlier_route_off_the_rule(cuda_device, case):
+    """Geometries off ``bulk_route`` take the earlier kernels of K1 and K8
+    (the bulk counters stay) and hold their parity; among them pool blocks
+    two of which overfill the ring's shared memory (128 KB a block). K1's
+    earlier kernel holds no row of D 256 in its shared memory, so there it
+    raises, as it did before the bulk-copy route existed."""
+    rng = np.random.default_rng(len(case))
+    kv = case.split()[0]
+    D = {"bf16 D36": 36, "bf16 BS 128 D 256": 256}.get(case, 128)
+    BS = {"int8 BS 2": 2, "f32 BS 128": 128,
+          "bf16 BS 128 D 256": 128}.get(case, 16)
+    lens = [0, 1, 3 * BS + 1, 8 * BS]
+    q, kp, vp, bt, ln, ks, vs = _bulk_paged_case(rng, cuda_device, kv, 2,
+                                                 BS, 2, 8, lens, D=D)
+    if case == "f32 pool off 16 bytes":
+        flat = torch.empty(kp.numel() + 1, dtype=kp.dtype, device=cuda_device)
+        flat[1:].copy_(kp.reshape(-1))
+        kp = flat[1:].view(kp.shape)
+    if case == "int8 scales off 16 bytes":
+        flat = torch.empty(ks.numel() + 1, dtype=ks.dtype, device=cuda_device)
+        flat[1:].copy_(ks.reshape(-1))
+        ks = flat[1:].view(ks.shape)
+    assert not bulk_route(q, kp, vp, ks, vs, any_group=True)
+    if D == 256:
+        before = (flash_decode_paged.launches,
+                  flash_decode_paged.launches_bulk)
+        with pytest.raises(ValueError, match="do not fit in shared memory"):
+            flash_decode_paged(q, kp, vp, bt, ln, kv_tile_blocks=2,
+                               split_k=2)
+        assert (flash_decode_paged.launches,
+                flash_decode_paged.launches_bulk) == before
+    else:
+        got, counts = _k1_routes(q, kp, vp, bt, ln, k_scale=ks, v_scale=vs,
+                                 kv_tile_blocks=2, split_k=2)
+        assert counts == (1, 0)
+        want = paged_decode_ref(q, kp, vp, bt, ln, k_scale=ks, v_scale=vs)
+        tol = _tol(q.dtype)
+        assert (got[1:].float() - want[1:].float()).abs().max().item() <= tol
+        assert torch.all(got[0] == 0)
+    before = (flash_decode_paged_single.launches,
+              flash_decode_paged_single.launches_bulk)
+    k8 = flash_decode_paged_single(q, kp, vp, bt, ln, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert (flash_decode_paged_single.launches - before[0],
+            flash_decode_paged_single.launches_bulk - before[1]) == (1, 0)
+    assert parity_error(k8, paged_decode_single_plain(
+        q, kp, vp, bt, ln, k_scale=ks, v_scale=vs))[1] <= tolerance(q.dtype)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_paged_decode_earlier_kernel_on_the_rule(cuda_device, kv):
+    """The earlier K1 kernel, named by the wrapper's ``bulk=False``, on a
+    geometry the rule sends to the bulk-copy route: both hold parity on the
+    same inputs (the comparison ``chip_smoke.py`` times)."""
+    rng = np.random.default_rng(3)
+    lens = [0, 200, 1000, 1024]
+    q, kp, vp, bt, ln, ks, vs = _bulk_paged_case(rng, cuda_device, kv, 3,
+                                                 16, 8, 64, lens)
+    new, counts = _k1_routes(q, kp, vp, bt, ln, k_scale=ks, v_scale=vs)
+    assert counts == (1, 1)
+    old, bulk = paged_ops._launch(q, kp, vp, bt, ln, ks, vs, True, 1, 1,
+                                  bulk=False)
+    torch.cuda.synchronize()
+    assert not bulk
+    tol = _tol(q.dtype)
+    assert (new.float() - old.float()).abs().max().item() <= tol
+    assert torch.all(old[0] == 0) and torch.all(new[0] == 0)
+
+
+def test_paged_decode_bulk_tickets_left_at_zero(cuda_device):
+    """Two launches of the split route on one stream give equal outputs:
+    the last lane of each pair sets its ticket back to 0."""
+    rng = np.random.default_rng(8)
+    lens = [700, 0, 64, 1023]
+    q, kp, vp, bt, ln, _, _ = _bulk_paged_case(rng, cuda_device, "bf16", 3,
+                                               16, 2, 64, lens)
+    assert bulk_lanes(q, kp, bt) > 1
+    a = flash_decode_paged(q, kp, vp, bt, ln)
+    b = flash_decode_paged(q, kp, vp, bt, ln)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    from repro_torch.kernels.flash_decode.ops import _scratch
+    assert int(_scratch[(q.device, stream)][1].abs().sum().item()) == 0
+
+
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("G", [1, 3, 8, 12])
+@pytest.mark.parametrize("BS", [8, 16])
+@pytest.mark.parametrize("D", [64, 128])
+def test_single_decode_bulk_route_matches_plain_and_k1(cuda_device, kv, G,
+                                                       BS, D):
+    """K8's bulk-copy route (any group) against ``paged_decode_single_plain``
+    and K1 on the same inputs: lengths 0, 1, BS, odd, and a row of 40
+    blocks (the ring wraps); garbage table tails."""
+    rng = np.random.default_rng(300 + G + BS + D)
+    lens = [0, 1, BS, 2 * BS + 5, 40 * BS - 3]
+    q, kp, vp, bt, ln, ks, vs = _bulk_paged_case(rng, cuda_device, kv, G,
+                                                 BS, 2, 40, lens, D=D)
+    assert bulk_route(q, kp, vp, ks, vs, any_group=True)
+    before = (flash_decode_paged_single.launches,
+              flash_decode_paged_single.launches_bulk)
+    got = flash_decode_paged_single(q, kp, vp, bt, ln, k_scale=ks,
+                                    v_scale=vs)
+    torch.cuda.synchronize()
+    assert (flash_decode_paged_single.launches - before[0],
+            flash_decode_paged_single.launches_bulk - before[1]) == (1, 1)
+    want = paged_decode_single_plain(q, kp, vp, bt, ln, k_scale=ks,
+                                     v_scale=vs)
+    assert got.dtype == q.dtype
+    assert parity_error(got, want)[1] <= tolerance(q.dtype)
+    assert torch.all(got[0] == 0)
+    if G <= 8:
+        k1 = flash_decode_paged(q, kp, vp, bt, ln, k_scale=ks, v_scale=vs,
+                                kv_tile_blocks=4, split_k=2)
+        assert parity_error(got, k1)[1] <= tolerance(q.dtype)
