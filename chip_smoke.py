@@ -146,6 +146,34 @@ Phases, in order; any failure raises and exits non-zero:
    (K/V read once, as for K1), its plain version and its earlier kernel on
    the same inputs; no PyTorch call computes paged IntMax base-2
    attention, so no library time.
+25. (K) The four ported serving benches' own functions at their default
+   workloads, at llama3.2-3b's full width in bf16 with phase 13's weights
+   (attention projections at their true fan-in), each bench's rounds cut
+   to 3 (printed): ``prefill_paged_bench`` (4 documents, shared 576, body
+   3,072, chunk 256, block 32: the dense suffix prefill against K2's
+   chunks, then a one-shot and a chunked engine), ``kv_int8_bench`` (10
+   requests, prompt 40, 56 new tokens, block 16, 18 bf16 blocks' bytes, at
+   the model's head_dim 128), ``prefix_cache_bench`` (16 requests, shared
+   480, unique 16, 8 new tokens, block 32, 160 blocks, batch 8) and
+   ``serve_throughput`` (32 requests at rate 4,000/s, prompts 16-128, 12
+   new tokens, block 8, 64 blocks, batch 12: paged K1 against static K5).
+   Every K1, K2 and K5 launch on its redesigned route (bulk copy, tensor
+   cores, bulk copy); prefill savings and int8 capacity >= 1.8; the greedy
+   streams each bench compares (one-shot against chunked, bf16 against
+   int8, cache off against on every round, and every paged
+   ``serve_throughput`` round against the first) equal, or each first
+   difference excused by the near-tie audit of phase 13 (each sampled
+   row's logits copied: during the rounds of the prefix-cache and
+   throughput benches, in an untimed replay of the int8 bench's engines).
+   The speed ratios are printed beside each bench's gate, not gated here;
+   a profile of one more cache-on, paged and static drive each (device
+   busy share, kernel time by name), and the phase's time.
+26. (L) The paper's tables and figures on the card: Table IV and Fig. 5's
+   energy model, Fig. 5's measured rows (two-pass ``softmax_e`` against
+   the one-pass scan, plain) beside K6 on the same rows (CUDA events; K6
+   held to its plain version), Fig. 1's matmul and softmax times, the
+   Table-I bitwidth ablation (beside the CPU's rows), and the quickstart
+   (K6 and K3 against their plain versions, both launched).
 
 Phase 4 also runs one engine with ``attention_impl="flash"``, whose one-shot
 prefill goes through K3.
@@ -2690,6 +2718,358 @@ def phase_single_times(dev, bench_args, launches):
     return [row]
 
 
+BENCH_REPEATS = 3        # phase 25: rounds of each bench, cut from its default
+
+
+def _prompt_logits(eng):
+    """``_paged_logits`` of an engine that a bench's own function drives
+    (the handles stay inside it): returns take(prompts, T), the logits
+    behind each token by (index in ``prompts``, step) of the requests
+    submitted since the last take, on the host."""
+    import numpy as np
+    rec = _paged_logits(eng)
+    keys = {}
+    submit = eng.submit
+
+    def recording_submit(prompt, *a, **kw):
+        req = submit(prompt, *a, **kw)
+        keys[req.req_id] = np.asarray(prompt, np.int32).tobytes()
+        return req
+
+    eng.submit = recording_submit
+
+    def take(prompts, T):
+        by = {(keys[rid], t): lg for (rid, t), lg in rec.items()}
+        out = {(i, t): by[np.asarray(p, np.int32).tobytes(), t].float().cpu()
+               for i, p in enumerate(prompts) for t in range(T)}
+        rec.clear()
+        keys.clear()
+        return out
+
+    return take
+
+
+def _stream_audit(tag, names, a, b, a_logits, b_logits, vocab):
+    """Two runs' greedy streams (lists of token lists, one per request),
+    named ``names``, held equal, or each first difference excused as a
+    near-tie by ``_near_tie_audit`` on the logits behind them ((request,
+    step) -> logits); raises on a decisive flip."""
+    import numpy as np
+    import torch
+    T = len(a[0])
+    s_logits = [torch.stack([a_logits[i, t] for i in range(len(a))])
+                for t in range(T)]
+    share, lines = _near_tie_audit(np.array(a), b, s_logits, b_logits, vocab)
+    label = f"{names[0]} vs {names[1]}"
+    print(f"{tag} {label}: {share:.3f} of greedy tokens equal, "
+          f"{sum(x == y for x, y in zip(a, b))}/{len(a)} streams equal")
+    for line in lines:      # the audit names its sides static and paged
+        line = line.replace("static", "A").replace("paged", "B")
+        print(f"{tag} {label} near-tie audit (A {names[0]}, B {names[1]}): "
+              f"{line}")
+
+
+def _check_k2_tc(label):
+    from repro_torch.kernels.flash_prefill_paged import flash_prefill_paged
+    k2, tc = flash_prefill_paged.launches, flash_prefill_paged.launches_tc
+    check(k2 > 0 and tc == k2, f"{label}: {tc} of {k2} K2 launches on the "
+                               "tensor-core route")
+    return k2
+
+
+def _check_k5_bulk(label):
+    from repro_torch.kernels.flash_decode import flash_decode
+    k5, bulk = flash_decode.launches, flash_decode.launches_bulk
+    check(k5 > 0 and bulk == k5, f"{label}: {bulk} of {k5} K5 launches on "
+                                 "the bulk-copy route")
+    return k5
+
+
+def _met(ok: bool) -> str:
+    return "met" if ok else "missed"
+
+
+def _bench_reps(tag, name, default):
+    reps = min(default, BENCH_REPEATS)
+    if reps < default:
+        print(f"{tag} {name}: {reps} rounds (the bench's default "
+              f"{default}, cut)")
+    return reps
+
+
+def phase_serving_benches(dev, card):
+    """The four ported serving benches' own functions at their default
+    workloads, at llama3.2-3b's full width in bf16 with the weights of
+    ``_true_fan_in``: routes of every K1/K2/K5 launch, savings and
+    capacity gated, streams equal or near-ties; speed ratios read."""
+    import numpy as np
+    import torch
+    from repro_torch.benchmarks import (kv_int8_bench, prefill_paged_bench,
+                                        prefix_cache_bench, serve_throughput)
+    from repro_torch.serve import check_invariants
+    tag = "[25]"
+    t_phase = time.perf_counter()
+    cfg, params, _ = _full_width_llama(dev)
+    V = cfg.vocab_size
+
+    # -- prefill_paged_bench: dense suffix against chunked (K2) ------------
+    a = prefill_paged_bench.parse_args(["--device", "cuda"])
+    reps = _bench_reps(tag, "prefill_paged_bench", a.repeats)
+    prompts = prefill_paged_bench.make_docs(a.requests, a.shared_len,
+                                            a.doc_len, V, a.seed)
+    _reset_counts()
+    dense_s, chunked_s, argmax_eq = prefill_paged_bench._time_op_paths(
+        cfg, params, prompts[0], shared_len=a.shared_len,
+        block_size=a.block_size, chunk=a.chunk, repeats=reps, device=dev)
+    k2 = _check_k2_tc("prefill_paged_bench op paths")
+    n_chunks = -(-a.doc_len // a.chunk)
+    check(k2 == n_chunks * cfg.n_layers * (1 + reps),
+          f"prefill_paged_bench op paths: {k2} K2 launches")
+    ratio = dense_s / chunked_s
+    print(f"{tag} prefill_paged_bench (requests {a.requests}, shared "
+          f"{a.shared_len}, doc {a.doc_len}, chunk {a.chunk}, block "
+          f"{a.block_size}, bf16): dense {dense_s:.4f} s "
+          f"({a.doc_len / dense_s:.0f} tok/s), chunked {chunked_s:.4f} s "
+          f"({a.doc_len / chunked_s:.0f} tok/s), ratio dense/chunked "
+          f"{ratio:.3f} (the bench's >= 2 gate {_met(ratio >= 2)}: read "
+          f"here, not gated), next-token argmax equal {argmax_eq}, "
+          f"K2 launches {k2} (all on the tensor cores); {card}")
+    S = a.shared_len + a.doc_len
+    takes = {}
+    _reset_counts()
+    eq, metrics, outs = prefill_paged_bench._engine_equality(
+        cfg, params, prompts, block_size=a.block_size,
+        num_blocks=a.requests * ((S + a.max_new) // a.block_size + 2),
+        max_batch=max(2, a.requests // 2), max_len=S + a.max_new,
+        max_new=a.max_new, chunk=a.chunk, device=dev,
+        on_engine=lambda eng, c: takes.__setitem__(c, _prompt_logits(eng)))
+    k1 = _check_k1_bulk("prefill_paged_bench engines")
+    k2 = _check_k2_tc("prefill_paged_bench engines")
+    check(k2 == cfg.n_layers * metrics.prefill_chunks,
+          f"prefill_paged_bench engines: {k2} K2 launches, "
+          f"{metrics.prefill_chunks} chunks")
+    print(f"{tag} prefill_paged_bench engines: one-shot and chunked-"
+          f"{a.chunk} streams equal {eq}, prefill chunks "
+          f"{metrics.prefill_chunks}, prefix hit tokens "
+          f"{metrics.prefix_hit_tokens}, launches K1 {k1} K2 {k2}")
+    _stream_audit(tag, ("prefill_paged_bench one-shot", "chunked"), outs[0],
+                  outs[a.chunk], takes[0](prompts, a.max_new),
+                  takes[a.chunk](prompts, a.max_new), V)
+    del takes, outs
+    torch.cuda.empty_cache()
+
+    # -- kv_int8_bench: bf16 against int8 pools at one byte budget ---------
+    a = kv_int8_bench.parse_args(["--device", "cuda", "--head-dim",
+                                  str(cfg.head_dim_)])
+    reps = _bench_reps(tag, "kv_int8_bench", a.repeats)
+    budget, int8_blocks, cap = kv_int8_bench.equal_budget(
+        cfg, a.block_size, a.bf16_blocks)
+    check(cap >= 1.8, f"kv_int8_bench: capacity ratio {cap:.3f} < 1.8")
+    engines, traj, conc = kv_int8_bench.make_engines(cfg, params, a,
+                                                     int8_blocks, dev)
+    prompts = kv_int8_bench.make_prompts(a.requests, a.prompt_len, V,
+                                         a.seed)
+    _reset_counts()
+    walls, toks = kv_int8_bench.serve_rounds(engines, prompts, a.max_new,
+                                             reps)
+    k1 = _check_k1_bulk("kv_int8_bench")
+    check(engines["int8"].metrics.preemptions == 0,
+          "kv_int8_bench: the int8 engine preempted")
+    total = a.requests * a.max_new
+    tok_s = {kv: total / min(w) for kv, w in walls.items()}
+    ratio = tok_s["int8"] / tok_s["bf16"]
+    err = max(kv_int8_bench._logit_error_probe(cfg, params, p, dev)
+              for p in prompts[:3])
+    print(f"{tag} kv_int8_bench (requests {a.requests}, prompt "
+          f"{a.prompt_len}, max_new {a.max_new}, block {a.block_size}, "
+          f"head_dim {cfg.head_dim_}): budget {budget} bytes, bf16 "
+          f"{a.bf16_blocks} blocks, int8 {int8_blocks}, capacity ratio "
+          f"{cap:.3f}, trajectory {traj} blocks, concurrency {conc}; bf16 "
+          f"{tok_s['bf16']:.1f} tok/s ({min(walls['bf16']):.3f} s), int8 "
+          f"{tok_s['int8']:.1f} tok/s ({min(walls['int8']):.3f} s), ratio "
+          f"int8/bf16 {ratio:.3f} (the bench's >= 1.3 gate "
+          f"{_met(ratio >= 1.3)}: read here), max prefill "
+          f"logit error {err:.4f} (the bench's <= {a.logit_tol} gate "
+          f"{_met(err <= a.logit_tol)}: read here), K1 "
+          f"launches {k1} (all on the bulk-copy route); {card}")
+    logits = {}
+    for kv, eng in engines.items():
+        take = _prompt_logits(eng)
+        _, again = kv_int8_bench._serve_once(eng, prompts, a.max_new)
+        check(again == toks[kv], f"kv_int8_bench {kv}: a replay changed "
+                                 "the streams")
+        logits[kv] = take(prompts, a.max_new)
+    _stream_audit(tag, ("kv_int8_bench bf16", "int8"), toks["bf16"],
+                  toks["int8"], logits["bf16"], logits["int8"], V)
+    del engines, logits
+    torch.cuda.empty_cache()
+
+    # -- prefix_cache_bench: cache on against off --------------------------
+    a = prefix_cache_bench.parse_args(["--device", "cuda"])
+    reps = _bench_reps(tag, "prefix_cache_bench", a.repeats)
+    prompts = prefix_cache_bench.make_prompts(a.requests, a.shared_len,
+                                              a.unique_len, V, a.seed)
+    common = dict(block_size=a.block_size, num_blocks=a.num_blocks,
+                  max_batch=a.max_batch,
+                  max_len=a.shared_len + a.unique_len + a.max_new,
+                  max_new=a.max_new, device=dev)
+    eng_on, drive_on = prefix_cache_bench.make_driver(
+        cfg, params, prompts, prefix_cache=True, **common)
+    eng_off, drive_off = prefix_cache_bench.make_driver(
+        cfg, params, prompts, prefix_cache=False, **common)
+    take_on, take_off = _prompt_logits(eng_on), _prompt_logits(eng_off)
+    _reset_counts()
+    on_tok_s, off_tok_s, on_c, off_c = [], [], [], []
+    for rnd in range(reps):
+        t_off, d_off, e_off, c_off = drive_off()
+        t_on, d_on, e_on, c_on = drive_on()
+        off_tok_s.append(d_off / e_off)
+        on_tok_s.append(d_on / e_on)
+        off_c.append(c_off)
+        on_c.append(c_on)
+        n = len(prompts)
+        _stream_audit(tag, (f"prefix_cache_bench round {rnd} off", "on"),
+                      [t_off[i] for i in range(n)],
+                      [t_on[i] for i in range(n)],
+                      take_off(prompts, a.max_new),
+                      take_on(prompts, a.max_new), V)
+    k1 = _check_k1_bulk("prefix_cache_bench")
+    check_invariants(eng_on.pool, eng_on.prefix_cache)
+    savings = float(np.median(off_c) / np.median(on_c))
+    ratio = float(np.median(on_tok_s) / np.median(off_tok_s))
+    check(savings >= 1.8, f"prefix_cache_bench: savings {savings:.3f}")
+    cs, m = eng_on.prefix_cache.stats, eng_on.metrics
+    print(f"{tag} prefix_cache_bench (requests {a.requests}, shared "
+          f"{a.shared_len}, unique {a.unique_len}, max_new {a.max_new}, "
+          f"block {a.block_size}, {a.num_blocks} blocks, batch "
+          f"{a.max_batch}): off {np.median(off_tok_s):.1f} tok/s, "
+          f"{np.median(off_c):.0f} prefill tokens a round; on "
+          f"{np.median(on_tok_s):.1f} tok/s, {np.median(on_c):.0f} prefill "
+          f"tokens a round; prefill savings {savings:.3f} (engine "
+          f"{m.prefill_savings:.3f}), hit rate {cs.hit_rate:.3f}, hit "
+          f"tokens {cs.hit_tokens}, evictions {cs.evictions}, COW "
+          f"{m.cow_copies}, shared-block peak {m.shared_blocks_peak}; "
+          f"ratio on/off {ratio:.3f} (the bench's >= 1.3 gate "
+          f"{_met(ratio >= 1.3)}: read here), K1 launches "
+          f"{k1} (all on the bulk-copy route); {card}")
+    print(f"{tag} prefix_cache_bench cache-on " + step_profile(
+        drive_on, 1, "round (one drive, after the timed rounds)"))
+    del eng_on, eng_off, drive_on, drive_off, take_on, take_off
+    torch.cuda.empty_cache()
+
+    # -- serve_throughput: paged (K1) against static slots (K5) ------------
+    a = serve_throughput.parse_args(["--device", "cuda",
+                                     "--no-overhead-check"])
+    reps = _bench_reps(tag, "serve_throughput", a.repeats)
+    budget = a.num_blocks * a.block_size
+    slot_width = a.max_prompt + a.max_new
+    slots = max(budget // slot_width, 1)
+    wl = serve_throughput.make_workload(a.requests, a.rate, a.min_prompt,
+                                        a.max_prompt, V, a.seed)
+    static = serve_throughput.make_static_driver(
+        cfg, params, wl, slots=slots, pad_len=a.max_prompt,
+        max_new=a.max_new, device=dev)
+    paged, peng = serve_throughput.make_paged_driver(
+        cfg, params, wl, block_size=a.block_size, num_blocks=a.num_blocks,
+        max_batch=a.max_batch, max_len=slot_width, max_new=a.max_new,
+        device=dev)
+    rec = _paged_logits(peng)
+    _reset_counts()
+    s_rounds, p_rounds, ratios, m, reqs = serve_throughput.run_rounds(
+        static, paged, reps)
+    k1 = _check_k1_bulk("serve_throughput paged")
+    k5 = _check_k5_bulk("serve_throughput static")
+    print(f"{tag} serve_throughput (requests {a.requests} at rate "
+          f"{a.rate:g}/s, prompts {a.min_prompt}-{a.max_prompt}, max_new "
+          f"{a.max_new}, block {a.block_size}, {a.num_blocks} blocks, batch "
+          f"{a.max_batch}; budget {budget} tokens, {slots} static slots): "
+          f"static {np.median(s_rounds):.1f} tok/s, paged "
+          f"{np.median(p_rounds):.1f} tok/s, ratio paged/static "
+          f"{np.median(ratios):.3f} (rounds "
+          + ", ".join(f"{r:.3f}" for r in ratios) +
+          f"); paged peak blocks {m.peak_blocks}, decode steps "
+          f"{m.decode_steps}, preemptions {m.preemptions}; launches K1 {k1} "
+          f"(all on the bulk-copy route), K5 {k5} (all on the bulk-copy "
+          f"route); {card}")
+    T = a.max_new
+    logits = [{(i, t): rec[r.req_id, t].float().cpu() for i, r in
+               enumerate(rs) for t in range(T)} for rs in reqs]
+    for rnd in range(1, reps):
+        _stream_audit(tag, ("serve_throughput paged round 0", f"round {rnd}"),
+                      [r.tokens for r in reqs[0]],
+                      [r.tokens for r in reqs[rnd]], logits[0],
+                      logits[rnd], V)
+    for name, drive in (("paged", paged), ("static", static)):
+        print(f"{tag} serve_throughput {name} " + step_profile(
+            drive, 1, "round (one drive, after the timed rounds)"))
+    del static, paged, peng, rec, logits, params
+    torch.cuda.empty_cache()
+    print(f"{tag} phase time {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_paper_tables(dev, card):
+    """The paper's tables and figures on the card: Table IV and Fig. 5's
+    model, Fig. 5's and Fig. 1's measured rows, the Table-I ablation, K6
+    timed on Fig. 5's rows, and the quickstart (K6 and K3 against their
+    plain versions)."""
+    import torch
+    from repro_torch.benchmarks import (fig1_breakdown, fig5_sweep,
+                                        table1_bitwidth_ablation,
+                                        table4_efficiency)
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels.parity import F32_ATOL, parity_error
+    from repro_torch.kernels.softermax import (softermax_rows,
+                                               softermax_rows_ref)
+    tag = "[26]"
+    t_phase = time.perf_counter()
+    for unit, r in table4_efficiency.run().items():
+        print(f"{tag} table4 {unit}: area {r['area_ratio']:.3f} (paper "
+              f"{r['paper_area']:.2f}), energy {r['energy_ratio']:.3f} "
+              f"(paper {r['paper_energy']:.2f})")
+    for r in fig5_sweep.run_model():
+        print(f"{tag} fig5 model width {r['width']} seq {r['seq_len']}: "
+              f"baseline {r['baseline_uj']:.2f} uJ, softermax "
+              f"{r['softermax_uj']:.2f} uJ, ratio {r['ratio']:.3f}")
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    for r in fig5_sweep.run_measured(device=dev):
+        x = fig5_sweep.rows_for(r["seq_len"], dev)
+        _reset_counts()
+        err = parity_error(softermax_rows(x), softermax_rows_ref(x))[1]
+        check(err <= F32_ATOL, f"fig5 rows seq {r['seq_len']}: K6 error "
+                               f"{err:.3g}")
+        k6 = _time_ms(lambda: softermax_rows(x), flush)
+        print(f"{tag} fig5 measured seq {r['seq_len']} (64 rows, f32): "
+              f"two-pass softmax_e {r['two_pass_us']:.1f} us, softermax "
+              f"scan {r['softermax_us']:.1f} us (plain, host clock around a "
+              f"synced call); K6 {k6 * 1e3:.1f} us (CUDA events, L2 "
+              f"flushed), error {err:.3g}; {card}")
+    for r in fig1_breakdown.run(device=dev):
+        print(f"{tag} fig1 seq {r['seq_len']} (H 16, D 64, f32): matmuls "
+              f"{r['matmul_us']:.1f} us, softmax_e {r['softmax_e_us']:.1f} "
+              f"us, softermax {r['softermax_us']:.1f} us, softmax share "
+              f"{r['softmax_frac_baseline']:.3f} baseline, "
+              f"{r['softmax_frac_softermax']:.3f} softermax; {card}")
+    rows = table1_bitwidth_ablation.run(device=dev)
+    cpu = table1_bitwidth_ablation.run(device="cpu")
+    diff = max(abs(r[k] - c[k]) for r, c in zip(rows, cpu)
+               for k in ("max_err", "mean_err"))
+    for r in rows:
+        print(f"{tag} table1 out_bits {r['out_bits']} unnormed_bits "
+              f"{r['unnormed_bits']}: max_err {r['max_err']:.5f}, mean_err "
+              f"{r['mean_err']:.6f}")
+    print(f"{tag} table1 card rows against the CPU's: max difference "
+          f"{diff:.3g}")
+    _reset_counts()
+    errs = quickstart.run(dev)
+    k3, k6 = _flash_counts()[0], _softermax_counts()[0]
+    check(k3 > 0 and k6 > 0, f"quickstart: launches K3 {k3}, K6 {k6}")
+    check(errs["kernel"] <= F32_ATOL and errs["flash"] <= F32_ATOL,
+          f"quickstart errors {errs}")
+    print(f"{tag} quickstart: K6 error {errs['kernel']:.3g}, K3 error "
+          f"{errs['flash']:.3g}, launches K3 {k3}, K6 {k6}; {card}")
+    print(f"{tag} phase time {time.perf_counter() - t_phase:.1f} s")
+
+
 def _row(name, src, replaces, launches, per_step, err, ms, plain, nbytes,
          flops, library=None, peak="bfloat16"):
     """One kernel's entry of the ``kernels`` line; ``peak`` names the rate
@@ -2774,6 +3154,10 @@ def main() -> int:
     print("[24] sm clock, power draw, temperature: " +
           card_line("clocks.sm,power.draw,temperature.gpu"))
     kernels += phase_single_times(dev, bench_args, k8_launches)
+    phase_serving_benches(dev, card)
+    print("[25] sm clock, power draw, temperature: " +
+          card_line("clocks.sm,power.draw,temperature.gpu"))
+    phase_paper_tables(dev, card)
     for k in kernels:
         k["card"] = card
         lib = "" if k["library_ms"] is None else \

@@ -6,9 +6,18 @@ build and card (name and power limit, as ``nvidia-smi`` prints them), and
 in which measurement mode — so a CPU artifact cannot be mistaken for a
 card measurement, and two card numbers are compared only at one power
 limit.
+
+The commit comes from the environment variable ``REPRO_GIT_COMMIT`` when
+it is set and not empty, and only otherwise from ``git`` — a tree
+unpacked with ``git archive`` has no ``.git``, so a run from such a copy
+passes the commit it was made from, for example
+
+    REPRO_GIT_COMMIT=$(git rev-parse HEAD) python -m \
+        repro_torch.benchmarks.prefill_paged_bench
 """
 from __future__ import annotations
 
+import os
 import platform
 import shutil
 import subprocess
@@ -20,10 +29,15 @@ from typing import Dict, Optional
 import torch
 
 ROOT = Path(__file__).resolve().parents[3]
+COMMIT_ENV = "REPRO_GIT_COMMIT"
 
 
 def git_commit() -> Optional[str]:
-    """HEAD of the checkout (+ ``-dirty``), or None outside a repository."""
+    """The commit named by ``REPRO_GIT_COMMIT``; else HEAD of the checkout
+    (+ ``-dirty``), or None outside a repository."""
+    passed = os.environ.get(COMMIT_ENV, "").strip()
+    if passed:
+        return passed
     try:
         head = subprocess.run(
             ["git", "rev-parse", "HEAD"], capture_output=True, text=True,

@@ -39,6 +39,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=list(GRID_ARCHS), default="llama3.2-3b")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--optimized", action="store_true",
+                    help="turn every opt_* flag of the config on (bf16 "
+                         "params; an int8 KV pool by default)")
     ap.add_argument("--device", default="cuda",
                     help="device to serve on (default: the CUDA card; "
                          "'cpu' runs the kernels' plain versions)")
@@ -98,6 +101,8 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_config(cfg)
+    if args.optimized:
+        cfg = cfg.with_opts(True)
     params = init_lm_params(
         cfg, torch.Generator(device=device).manual_seed(args.seed))
     rng = np.random.default_rng(args.seed)
@@ -135,14 +140,21 @@ def main(argv=None) -> None:
     log.info("kv pool[%s]: %d-token capacity in %.2f MiB (%d blocks x %d)",
              eng.pool.kv_dtype, eng.pool.token_capacity,
              eng.pool.hbm_bytes / 2 ** 20, args.num_blocks, args.block_size)
-    log.info("pool peak=%d blocks, preemptions=%d, decode steps=%d, "
-             "prefill chunks=%d", m.peak_blocks, m.preemptions,
-             m.decode_steps, m.prefill_chunks)
+    log.info("pool peak=%d blocks (%.0f%% of %d), preemptions=%d",
+             m.peak_blocks, 100.0 * m.peak_blocks / args.num_blocks,
+             args.num_blocks, m.preemptions)
+    if args.prefill_chunk:
+        log.info("chunked prefill[%d]: %d chunks over %d prefills "
+                 "(%d prompt tokens computed)", eng.prefill_chunk,
+                 m.prefill_chunks, m.prefills, m.prefill_tokens)
     if eng.prefix_cache is not None:
         cs = eng.prefix_cache.stats
-        log.info("prefix cache[%s]: hit %d/%d prompt tokens, %d COW",
-                 args.evict_policy, cs.hit_tokens, cs.lookup_tokens,
-                 m.cow_copies)
+        log.info("prefix cache[%s]: hit %d/%d prompt tokens (%.0f%%), "
+                 "%d shared-block peak, %d COW, %d evictions, prefill "
+                 "savings %.2fx", args.evict_policy, cs.hit_tokens,
+                 cs.lookup_tokens, 100.0 * cs.hit_rate,
+                 m.shared_blocks_peak, m.cow_copies, cs.evictions,
+                 m.prefill_savings)
     if eng.planner is not None:
         log.info("autotune[%s]: grid=(tile=%d, split=%d), decisions %s",
                  args.autotune, eng.kv_tile_blocks, eng.decode_split_k,

@@ -149,6 +149,20 @@ class EngineMetrics:
     prefill_tokens: int = 0      # prompt tokens actually run through prefill
     prefix_hit_tokens: int = 0   # prompt tokens reused from the radix tree
     cow_copies: int = 0          # partial tail blocks copied on write
+    shared_blocks_peak: int = 0  # peak blocks referenced by >1 owner
+
+    @property
+    def tok_per_s(self) -> float:
+        """Delivered-token throughput (discarded work doesn't count)."""
+        kept = self.tokens_out - self.tokens_discarded
+        return kept / self.wall_s if self.wall_s > 0 else 0.0
+
+    @property
+    def prefill_savings(self) -> float:
+        """Ratio of prompt tokens submitted to prompt tokens computed —
+        the prefix cache's prefill-work reduction (1.0 = no reuse)."""
+        total = self.prefill_tokens + self.prefix_hit_tokens
+        return total / max(self.prefill_tokens, 1)
 
 
 class ContinuousEngine:
@@ -306,6 +320,7 @@ class ContinuousEngine:
         self.metrics.steps += 1
         self.metrics.wall_s += time.monotonic() - t0
         self.metrics.peak_blocks = self.pool.stats.peak_in_use
+        self.metrics.shared_blocks_peak = self.pool.stats.peak_shared
         self.metrics.cow_copies = self.pool.stats.cow_copies
         return events
 

@@ -55,6 +55,10 @@ class PoolStats:
     peak_shared: int = 0
     cow_copies: int = 0      # partially-filled tail blocks copied on write
 
+    @property
+    def utilization(self) -> float:
+        return self.blocks_in_use / max(self.num_blocks, 1)
+
 
 KV_DTYPES = ("auto", "bf16", "int8")
 
@@ -102,6 +106,19 @@ class PagedKVCache:
         if kv_dtype == "bf16":
             return torch.bfloat16
         return cfg.compute_dtype_
+
+    @staticmethod
+    def bytes_per_block(cfg: ModelConfig, block_size: int,
+                        kv_dtype: str = "auto") -> int:
+        """Device bytes ONE usable block costs across all layers (K + V,
+        plus the per-row f32 scales when quantized): the unit the
+        equal-memory-budget benchmarks size pools in."""
+        L, Hkv, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim_
+        dt = PagedKVCache._storage_dtype(cfg, kv_dtype)
+        per = 2 * L * Hkv * block_size * Dh * dt.itemsize
+        if dt == torch.int8:
+            per += 2 * L * Hkv * block_size * 4        # f32 scales
+        return per
 
     @property
     def pools(self):
@@ -160,6 +177,13 @@ class PagedKVCache:
     @property
     def num_free(self) -> int:
         return len(self._free)
+
+    @property
+    def num_shared(self) -> int:
+        return self.stats.shared_blocks
+
+    def can_alloc(self, n: int) -> bool:
+        return n <= len(self._free)
 
     def _take_fresh(self, n: int) -> List[int]:
         if n > len(self._free):
@@ -235,3 +259,7 @@ class PagedKVCache:
             blocks = self._tables.get(rid, ())
             out[i, :len(blocks)] = blocks
         return out
+
+    @property
+    def utilization(self) -> float:
+        return self.stats.utilization

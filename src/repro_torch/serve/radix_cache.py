@@ -13,9 +13,10 @@ hold the original owner's decode junk; every reader masks by length).
 Sharing protocol (SGLang-RadixAttention-style tree + vLLM-style refcounted
 blocks):
 
-* ``plan(tokens)``     — read-only longest-prefix match, capped at
+* ``lookup(tokens)``   — read-only longest-prefix match, capped at
   ``len(tokens) - 1`` so prefill always recomputes at least the final prompt
-  token (its logits seed decoding), sized for admission.
+  token (its logits seed decoding); ``plan(tokens)`` sizes an admission
+  from the same match.
 * ``admit(req_id, …)`` — pin the matched path (eviction-proof while the
   request runs), evict LRU/FIFO unreferenced blocks until the uncached part
   of the trajectory fits, splice the matched full blocks into the request's
@@ -33,9 +34,11 @@ blocks):
   its table references. Blocks owned by the tree stay cached (refcount
   ≥ 1) — this is what "release prefixes back to the tree instead of
   freeing" means — and become evictable once no running request pins them.
-* ``evict_until_free(n)`` — walk childless unpinned nodes in LRU (or FIFO
-  insertion) order, dropping their tree reference; a block leaves the pool
-  only when its refcount hits zero.
+* ``evict(n)`` / ``evict_until_free(n)`` — walk childless unpinned nodes
+  in LRU (or FIFO insertion) order, dropping their tree reference; a block
+  leaves the pool only when its refcount hits zero.
+* ``purge(req_id)``    — quarantine: detach every node owning one of the
+  request's blocks, with its whole subtree.
 
 All of this is host-side metadata; the only device work is the COW block
 copy. Correctness invariant (``serve/invariants.check_invariants``):
@@ -64,7 +67,12 @@ class CacheStats:
     misses: int = 0
     inserts: int = 0           # blocks donated to the tree
     evictions: int = 0         # blocks evicted from the tree
+    purged_blocks: int = 0     # nodes dropped by quarantine purges
     # (COW copies are counted once, at the source: PoolStats.cow_copies)
+
+    @property
+    def hit_rate(self) -> float:
+        return self.hit_tokens / max(self.lookup_tokens, 1)
 
 
 class RadixNode:
@@ -154,6 +162,13 @@ class RadixCache:
         """Physical blocks currently owned by the tree."""
         return len(self._walk())
 
+    def evictable_blocks(self) -> int:
+        """Tree blocks reclaimable right now: nodes no running request pins.
+        (Pinning refs every node on a request's path, so an unpinned node
+        never has a pinned descendant and the whole unpinned frontier can be
+        evicted leaf-first.)"""
+        return sum(1 for nd in self._walk() if nd.ref == 0)
+
     # -- matching ---------------------------------------------------------
 
     def _match(self, tokens: Sequence[int]) -> MatchResult:
@@ -186,6 +201,10 @@ class RadixCache:
         matched += best_run
         return MatchResult(path, best if best_run else None, best_run,
                            matched)
+
+    def lookup(self, tokens: Sequence[int]) -> int:
+        """Read-only longest-prefix match; returns reusable token count."""
+        return self._match(tokens).n_tokens
 
     def plan(self, tokens: Sequence[int]) -> "AdmitPlan":
         """Size an admission without mutating anything: how many tokens a
@@ -382,6 +401,48 @@ class RadixCache:
         self._cursor.pop(req_id, None)
         return self.pool.free(req_id)
 
+    # -- quarantine -------------------------------------------------------
+
+    def purge(self, req_id: int) -> int:
+        """Detach from the tree every node owning one of ``req_id``'s table
+        blocks, and the node's whole subtree: descendants extend the
+        poisoned prefix, so KV computed attending the bad blocks goes too.
+        Detached nodes drop their tree reference (the block frees once no
+        table holds it); nodes other requests still pin are detached all
+        the same, their pins unwinding at release, but no later admission
+        can match them. Returns nodes purged."""
+        table = set(self.pool._tables.get(req_id, ()))
+        if not table:
+            return 0
+        purged = 0
+        # the topmost poisoned nodes, each subtree dropped post-order
+        # (an earlier drop may already have taken a descendant's subtree)
+        roots = [nd for nd in self._walk() if nd.block in table]
+        for nd in roots:
+            if nd.parent is None or \
+                    nd.parent.children.get(nd.key) is not nd:
+                continue             # already detached with an ancestor
+            purged += self._drop_subtree(nd)
+        self.stats.purged_blocks += purged
+        # a publish cursor may now point into a detached subtree: drop it
+        # so a later insert republishes from the root
+        live = {id(n) for n in self._walk()}
+        live.add(id(self.root))
+        for rid, (node, _skip) in list(self._cursor.items()):
+            if id(node) not in live:
+                self._cursor.pop(rid)
+        return purged
+
+    def _drop_subtree(self, nd: RadixNode) -> int:
+        """Detach ``nd`` and every descendant, dropping each node's tree
+        reference on its block (post-order)."""
+        n = 0
+        for ch in list(nd.children.values()):
+            n += self._drop_subtree(ch)
+        del nd.parent.children[nd.key]
+        self.pool.decref(nd.block)
+        return n + 1
+
     # -- eviction ---------------------------------------------------------
 
     def _priority(self, nd: RadixNode) -> int:
@@ -415,6 +476,11 @@ class RadixCache:
                 heapq.heappush(heap, (self._priority(parent),
                                       tiebreak := tiebreak + 1, parent))
         return evicted
+
+    def evict(self, n: int) -> int:
+        """Evict up to ``n`` cached blocks (childless, unpinned nodes first,
+        in policy order). Returns the number of blocks evicted."""
+        return self._evict_while(lambda done: done < n)
 
     def evict_until_free(self, target: int) -> bool:
         """Evict until the pool has ``target`` free blocks (an evicted

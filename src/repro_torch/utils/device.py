@@ -17,3 +17,11 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "no CUDA device available; pass device='cpu' to run the plain "
             "PyTorch versions on the CPU")
     return dev
+
+
+def synchronize(device: Union[str, torch.device]) -> None:
+    """Wait for the card's queued work (a no-op on the CPU): a host clock
+    read after this has timed the device work, not its enqueue."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
