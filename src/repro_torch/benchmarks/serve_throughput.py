@@ -20,14 +20,18 @@ a device synchronize before the clock is read. Arrivals are wall-clock
 times, so the admission schedule depends on how long steps take: compare
 per-request greedy streams, never schedules.
 
-The reference also gates the telemetry hooks' overhead (< 5%); telemetry
-is not ported yet (``ROADMAP.md`` Queue 1, serving telemetry), so a paged
-run without ``--no-overhead-check`` raises ``NotImplementedError``. Writes
-no record, as the reference writes none. Prints ``serve_throughput,...``
-CSV lines, the last one the paged/static tok/s ratio.
+Unless ``--no-overhead-check`` is given, each round also drives the same
+paged engine with telemetry fully on (request traces, step timeline,
+latency histograms), back to back with the plain drive in alternating
+order and the garbage collector held off across the pair: the best-of
+paired on/off tok/s ratio must be >= 0.95 (the hooks cost < 5%), and the
+TTFT, TPOT and e2e quantiles of the telemetry drives are printed (host
+dispatch stamps). Writes no record, as the reference writes none. Prints
+``serve_throughput,...`` CSV lines, the last one the paged/static tok/s
+ratio.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.serve_throughput \\
-        --no-overhead-check [--fast] [--engine {static,paged,both}]
+        [--fast] [--engine {static,paged,both}] [--no-overhead-check]
 """
 from __future__ import annotations
 
@@ -42,10 +46,6 @@ import numpy as np
 import torch
 
 from repro_torch.utils.device import resolve_device, synchronize
-
-TELEMETRY_ITEM = ("the telemetry hooks, not yet ported (ROADMAP.md Queue 1 "
-                  "item 1, serving telemetry); pass --no-overhead-check to "
-                  "run without that gate")
 
 
 @dataclasses.dataclass
@@ -73,9 +73,10 @@ def make_workload(n: int, rate: float, min_prompt: int, max_prompt: int,
 
 
 def make_paged_driver(cfg, params, workload, *, block_size, num_blocks,
-                      max_batch, max_len, max_new, device):
-    """Returns drive() -> (tokens, elapsed s, metrics, the finished
-    requests in arrival order) on one warmed engine, and the engine."""
+                      max_batch, max_len, max_new, device, telemetry=None):
+    """Returns drive(telemetry=None) -> (tokens, elapsed s, metrics, the
+    finished requests in arrival order) on one warmed engine, and the
+    engine."""
     from repro_torch.serve import ContinuousEngine, EngineMetrics
     # prefix cache OFF: the repeats replay identical prompts, and a warm
     # radix tree would let the paged engine skip prefills the static engine
@@ -84,10 +85,13 @@ def make_paged_driver(cfg, params, workload, *, block_size, num_blocks,
     eng = ContinuousEngine(cfg, params, block_size=block_size,
                            num_blocks=num_blocks, max_batch=max_batch,
                            max_len=max_len, prefix_cache=False,
-                           device=device)
+                           telemetry=telemetry, device=device)
     eng.warmup()
 
-    def drive():
+    def drive(telemetry=None):
+        # the overhead check swaps telemetry on and off on THIS engine, so
+        # both drives share every buffer: the ratio measures the hooks
+        eng.telemetry = telemetry
         pending = deque(workload)
         handles = []
         synchronize(device)
@@ -157,29 +161,82 @@ def make_static_driver(cfg, params, workload, *, slots, pad_len, max_new,
     return drive
 
 
-def run_rounds(static_drive, paged_drive, repeats):
+def run_rounds(static_drive, paged_drive, repeats, tel=None):
     """Interleaved rounds, each pairing one static and one paged drive in
-    the same wall-clock window, the garbage collector held off across the
-    paged drive. Returns (static tok/s, paged tok/s, per-round ratios, the
-    last paged metrics, the paged rounds' finished requests)."""
-    s_rounds, p_rounds, ratios, paged_reqs = [], [], [], []
+    the same wall-clock window; with ``tel``, one more paged drive with
+    telemetry on, before or after the plain one in turns, the garbage
+    collector held off across the pair (a collection landing in one window
+    would read as hook overhead). Returns (static tok/s, paged tok/s,
+    telemetry-on paged tok/s, per-round paged/static ratios, the last
+    plain paged metrics, the plain paged rounds' finished requests)."""
+    s_rounds, p_rounds, t_rounds, ratios, paged_reqs = [], [], [], [], []
     m = None
-    for _ in range(repeats):
+    if paged_drive and tel is not None:
+        # one untimed plain drive before the overhead rounds: warmup() runs
+        # one synthetic request, so the first drive meets the workload's
+        # prompt shapes cold and, landing in round 0's telemetry turn,
+        # would read as hook overhead. Without ``tel`` the rounds run as
+        # the reference's do, the first drive cold
+        t, e, _, _ = paged_drive()
+        print(f"serve_throughput,telemetry_warm_drive_tok_s,{t / e:.0f}")
+    for r in range(repeats):
         if static_drive:
             t, e, _ = static_drive()
             s_rounds.append(t / e)
         if paged_drive:
+            # whichever drive runs second sees a slightly colder window,
+            # so the order alternates
+            order = [(p_rounds, None)]
+            if tel is not None:
+                order.insert(r % 2, (t_rounds, tel))
             gc.collect()
             gc.disable()
             try:
-                t, e, m, reqs = paged_drive()
+                for sink, t_arg in order:
+                    t, e, mm, reqs = paged_drive(telemetry=t_arg)
+                    sink.append(t / e)
+                    if t_arg is None:
+                        m = mm
+                        paged_reqs.append(reqs)
             finally:
                 gc.enable()
-            p_rounds.append(t / e)
-            paged_reqs.append(reqs)
         if static_drive and paged_drive:
             ratios.append(p_rounds[-1] / s_rounds[-1])
-    return s_rounds, p_rounds, ratios, m, paged_reqs
+    return s_rounds, p_rounds, t_rounds, ratios, m, paged_reqs
+
+
+def report_telemetry(tel, t_rounds, p_rounds) -> float:
+    """Print the telemetry drives' latency quantiles, the paired on/off
+    tok/s and the median of the paired ratios; returns the best-of ratio
+    (the overhead gate's reading: best-of keeps a host hiccup in one window
+    from reading as overhead, and the median shows how far the rounds
+    spread around it)."""
+    for name in ("ttft", "tpot", "e2e"):
+        q = tel.quantiles(name)
+        print(f"serve_throughput,{name},"
+              f"p50_ms,{q['p50'] * 1e3:.2f},"
+              f"p90_ms,{q['p90'] * 1e3:.2f},"
+              f"p99_ms,{q['p99'] * 1e3:.2f},n,{q['count']}")
+    overhead_ratio = max(t / p for t, p in zip(t_rounds, p_rounds))
+    print("serve_throughput,telemetry_rounds_tok_s," +
+          ",".join(f"{t:.0f}/{p:.0f}" for t, p in zip(t_rounds, p_rounds)))
+    print(f"serve_throughput,telemetry_on_over_off,{overhead_ratio:.3f}")
+    print("serve_throughput,telemetry_on_over_off_median,"
+          f"{np.median([t / p for t, p in zip(t_rounds, p_rounds)]):.3f}")
+    return overhead_ratio
+
+
+class OverheadGateMissed(RuntimeError):
+    """The telemetry-on drives ran more than 5% slower than the plain ones
+    in every round."""
+
+
+def check_overhead(ratio: float) -> None:
+    """The overhead gate: the best-of paired on/off tok/s ratio >= 0.95."""
+    if ratio < 0.95:
+        raise OverheadGateMissed(
+            f"telemetry-enabled tok/s {ratio:.3f}x of disabled (> 5% "
+            "regression)")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -206,8 +263,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--fast", action="store_true")
     ap.add_argument("--no-overhead-check", action="store_true",
                     help="skip the telemetry-enabled vs -disabled paged "
-                         "drive comparison (required until telemetry is "
-                         "ported)")
+                         "drive comparison")
     args = ap.parse_args(argv)
     if args.fast:
         args.repeats = 6
@@ -216,10 +272,6 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> float:
     args = parse_args(argv)
-    if args.engine in ("paged", "both") and not args.no_overhead_check:
-        raise NotImplementedError(
-            "serve_throughput's telemetry-overhead gate needs " +
-            TELEMETRY_ITEM)
     device = resolve_device(args.device)
     from repro_torch.models.registry import (get_config, init_lm_params,
                                              reduce_config)
@@ -235,7 +287,7 @@ def main(argv=None) -> float:
     print(f"serve_throughput,budget_tokens,{budget},slot_width,{slot_width},"
           f"static_slots,{slots}")
 
-    static_drive = paged_drive = None
+    static_drive = paged_drive = tel = None
     if args.engine in ("static", "both"):
         static_drive = make_static_driver(cfg, params, workload, slots=slots,
                                           pad_len=args.max_prompt,
@@ -246,11 +298,14 @@ def main(argv=None) -> float:
             cfg, params, workload, block_size=args.block_size,
             num_blocks=args.num_blocks, max_batch=args.max_batch,
             max_len=max_len, max_new=args.max_new, device=device)
+        if not args.no_overhead_check:
+            from repro_torch.serve import Telemetry
+            tel = Telemetry()
 
     # interleaved rounds: the reported tok/s are the per-engine medians
     # and the ratio is the median of the per-round ratios
-    s_rounds, p_rounds, ratios, m, _ = run_rounds(static_drive, paged_drive,
-                                                  args.repeats)
+    s_rounds, p_rounds, t_rounds, ratios, m, _ = run_rounds(
+        static_drive, paged_drive, args.repeats, tel)
     tok_s_static = float(np.median(s_rounds)) if s_rounds else 0.0
     tok_s_paged = float(np.median(p_rounds)) if p_rounds else 0.0
     if static_drive:
@@ -260,6 +315,8 @@ def main(argv=None) -> float:
         print(f"serve_throughput,paged,tok_s,{tok_s_paged:.2f},"
               f"peak_blocks,{m.peak_blocks},decode_steps,{m.decode_steps},"
               f"preemptions,{m.preemptions}")
+    if tel is not None:
+        check_overhead(report_telemetry(tel, t_rounds, p_rounds))
     if args.engine == "both":
         ratio = float(np.median(ratios))
         print(f"serve_throughput,ratio_paged_over_static,{ratio:.2f}")

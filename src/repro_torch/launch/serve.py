@@ -12,6 +12,17 @@ the paged KV pool (``--engine paged``).
         --block-size 16 --num-blocks 2048 --kv-tile-blocks 4 \
         --decode-split-k 2 --autotune per-step
 
+Observability (paged engine): ``--metrics-out metrics.prom`` (or
+``.jsonl``) writes the metric registry, ``--trace-out trace.json`` the
+Perfetto-loadable step timeline, ``--numerics-every N`` turns on the int8
+numerics monitor; any of these implies ``--telemetry``, which without
+``--metrics-out`` prints the registry's Prometheus text to stdout.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
+        --engine paged --batch 8 --prompt-len 512 --max-new 32 \
+        --num-blocks 2048 --kv-dtype int8 --metrics-out metrics.prom \
+        --trace-out trace.json --numerics-every 1
+
 Runs on the CUDA card by default; ``--device cpu`` runs the plain PyTorch
 versions of the kernels instead (with ``--reduced`` for a CPU-sized model).
 Weights are random, drawn from ``--seed``; prompts too. The paged-engine
@@ -28,7 +39,7 @@ import torch
 
 from repro_torch.models.registry import (GRID_ARCHS, get_config,
                                          init_lm_params, reduce_config)
-from repro_torch.serve import (ContinuousEngine, ServeEngine,
+from repro_torch.serve import (ContinuousEngine, ServeEngine, Telemetry,
                                check_invariants)
 from repro_torch.utils.device import resolve_device
 
@@ -91,6 +102,25 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "batch's lengths vector over the candidate grids. "
                          "--kv-tile-blocks/--decode-split-k bound the "
                          "candidate set")
+    ap.add_argument("--telemetry", action=argparse.BooleanOptionalAction,
+                    default=None,
+                    help="paged engine: per-request tracing + metric "
+                         "registry + step timeline (serve/telemetry.py). "
+                         "Defaults on when --metrics-out/--trace-out/"
+                         "--numerics-every is given, off otherwise")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the final metric-registry state here: "
+                         "*.jsonl appends one snapshot line (JSONL sink), "
+                         "anything else gets Prometheus text exposition")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write the step timeline as Chrome trace-event "
+                         "JSON (load in chrome://tracing or Perfetto)")
+    ap.add_argument("--numerics-every", type=int, default=0, metavar="N",
+                    help="telemetry: audit every Nth prefill on an int8 "
+                         "pool — lockstep full-precision vs int8 forward "
+                         "publishing the live logit-error gauge plus "
+                         "IntMax-overflow / scale-saturation counters "
+                         "(0 = off)")
     return ap.parse_args(argv)
 
 
@@ -118,6 +148,9 @@ def main(argv=None) -> None:
         _report(cfg, device, [r.tolist() for r in res.tokens],
                 time.time() - t0, "static")
         return
+    want_tel = args.telemetry if args.telemetry is not None else \
+        bool(args.metrics_out or args.trace_out or args.numerics_every)
+    tel = Telemetry(numerics_every=args.numerics_every) if want_tel else None
     eng = ContinuousEngine(
         cfg, params, block_size=args.block_size, num_blocks=args.num_blocks,
         max_batch=args.batch, max_len=args.prompt_len + args.max_new,
@@ -127,7 +160,7 @@ def main(argv=None) -> None:
         kv_dtype=None if args.kv_dtype == "auto" else args.kv_dtype,
         kv_tile_blocks=args.kv_tile_blocks,
         decode_split_k=args.decode_split_k, autotune=args.autotune,
-        device=device)
+        telemetry=tel, device=device)
     del params
     t0 = time.time()
     handles = [eng.submit(p, args.max_new, temperature=args.temperature)
@@ -159,7 +192,41 @@ def main(argv=None) -> None:
         log.info("autotune[%s]: grid=(tile=%d, split=%d), decisions %s",
                  args.autotune, eng.kv_tile_blocks, eng.decode_split_k,
                  eng.planner.summary() or "(static)")
+    if tel is not None:
+        _report_telemetry(args, cfg, tel)
     _report(cfg, device, rows, dt, "paged")
+
+
+def _report_telemetry(args, cfg, tel: Telemetry) -> None:
+    """The telemetry's end-of-run lines (host dispatch stamps) and sinks."""
+    for nm in ("ttft", "tpot", "e2e"):
+        q = tel.quantiles(nm)
+        log.info("%s: p50 %.1fms p90 %.1fms p99 %.1fms (n=%d)", nm,
+                 q["p50"] * 1e3, q["p90"] * 1e3, q["p99"] * 1e3,
+                 q["count"])
+    err = tel.registry.get("numerics_logit_error_max")
+    if err is not None:
+        log.info("numerics: max |full - int8| logit delta %.4f over %d "
+                 "probes", err.value, tel.c_probes.value)
+    kd = tel.registry.get("kernel_dma_bytes_total")
+    if kd is not None and kd.value > 0:
+        kw = tel.registry.get("kernel_waste_bytes_total")
+        kf = tel.registry.get("kernel_flops_total")
+        log.info("kernel cost: %.2f MiB gather DMA (%.0f%% clamped waste), "
+                 "%.2f MFLOP", kd.value / 2 ** 20,
+                 100.0 * kw.value / kd.value, kf.value / 1e6)
+    if args.metrics_out:
+        tel.save_metrics(args.metrics_out,
+                         extra={"arch": cfg.name, "engine": "paged"})
+        log.info("metrics -> %s", args.metrics_out)
+    else:
+        # no sink requested: the final Prometheus exposition to stdout
+        print("# final metric registry (Prometheus text exposition; pass "
+              "--metrics-out to write a file)")
+        print(tel.registry.prometheus_text(), end="")
+    if args.trace_out:
+        tel.save_chrome_trace(args.trace_out, meta={"arch": cfg.name})
+        log.info("step timeline -> %s", args.trace_out)
 
 
 def _report(cfg, device, rows, dt, engine) -> None:

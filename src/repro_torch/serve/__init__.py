@@ -10,8 +10,12 @@ from repro_torch.serve.kernel_costs import (DEFAULT_COST_PARAMS, CostParams,
                                             estimate_seconds,
                                             prefill_launch_cost)
 from repro_torch.serve.kv_pool import PagedKVCache, PoolExhausted, PoolStats
+from repro_torch.serve.metrics import (Counter, Gauge, Histogram,
+                                       MetricRegistry, parse_prometheus_text)
 from repro_torch.serve.radix_cache import CacheStats, RadixCache
 from repro_torch.serve.scheduler import Request, Scheduler
+from repro_torch.serve.telemetry import (ManualClock, RequestTrace,
+                                         StepTimeline, Telemetry)
 
 __all__ = ["AUTOTUNE_MODES", "GridDecision", "GridPlanner",
            "default_candidates", "DEFAULT_COST_PARAMS", "CostParams",
@@ -20,4 +24,7 @@ __all__ = ["AUTOTUNE_MODES", "GridDecision", "GridPlanner",
            "ServeEngine", "sample_tokens",
            "InvariantViolation", "check_invariants", "leaked_blocks",
            "PagedKVCache", "PoolExhausted", "PoolStats", "CacheStats",
-           "RadixCache", "Request", "Scheduler"]
+           "RadixCache", "Request", "Scheduler",
+           "Counter", "Gauge", "Histogram", "MetricRegistry",
+           "parse_prometheus_text", "ManualClock", "RequestTrace",
+           "StepTimeline", "Telemetry"]

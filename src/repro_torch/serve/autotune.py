@@ -13,9 +13,14 @@ The candidate set is closed at construction, and the knobs are layout,
 not math: every choice computes the same attention (split-K reassociates
 fp sums), so planning never changes what a request is served, up to that
 rounding. The planner is pure host arithmetic and never touches a device.
-The reference's metric-registry hooks (decision counters, predicted and
-measured step-time histograms) are not ported yet: ``registry`` must be
-None.
+
+Decisions are observable: with a metric registry (``serve/metrics.py``,
+the engine passes its telemetry's) every decision lands in choice
+counters, grid gauges and a predicted-seconds histogram, and
+``observe_measured`` records the engine's measured decode step beside
+the prediction. On the card that measurement is the host's dispatch time
+of the whole eager decode step, not K1's device time, so the ratio
+``autotune_pred_over_measured`` reads ~1e-3 there.
 """
 from __future__ import annotations
 
@@ -62,10 +67,6 @@ class GridPlanner:
                  block_size: int, kv_dtype: str = "float32",
                  cost_params: Optional[CostParams] = None,
                  registry=None, max_decisions: int = 4096):
-        if registry is not None:
-            raise NotImplementedError(
-                "GridPlanner: the metric registry (serving telemetry) is "
-                "not ported yet; pass registry=None")
         cands = sorted({(int(t), int(s)) for t, s in candidates})
         if not cands or any(t < 1 or s < 1 for t, s in cands):
             raise ValueError(f"bad candidate grid set: {candidates!r}")
@@ -76,6 +77,7 @@ class GridPlanner:
         self.block_size = block_size
         self.kv_dtype = kv_dtype
         self.cost_params = cost_params or DEFAULT_COST_PARAMS
+        self.registry = registry
         self.decisions: List[Dict] = []      # bounded in-memory trail
         self.max_decisions = max_decisions
         self._cache: Dict[Tuple, GridDecision] = {}
@@ -100,9 +102,8 @@ class GridPlanner:
 
     def plan_decode(self, lengths: Sequence[int],
                     table_width: int) -> GridDecision:
-        """Memoized ``rank``, recorded in ``decisions`` — the engine's
-        per-step entry point. ``lengths`` must be what the kernel will
-        attend."""
+        """Memoized ``rank`` + telemetry recording — the engine's per-step
+        entry point. ``lengths`` must be what the kernel will attend."""
         BS = self.block_size
         key = (table_width,
                tuple(sorted(-(-int(ln) // BS) for ln in lengths)))
@@ -111,6 +112,12 @@ class GridPlanner:
             if len(self._cache) >= self.max_decisions:
                 self._cache.clear()
             dec = self._cache[key] = self.rank(lengths, table_width)
+        self._record(dec, table_width)
+        return dec
+
+    # -- observability ----------------------------------------------------
+
+    def _record(self, dec: GridDecision, table_width: int) -> None:
         if len(self.decisions) < self.max_decisions:
             self.decisions.append({
                 "table_width": table_width,
@@ -120,11 +127,35 @@ class GridPlanner:
                 "gather_bytes": dec.cost.gather_bytes,
                 "waste_bytes": dec.cost.waste_bytes,
                 "flops": dec.cost.flops})
-        return dec
+        reg = self.registry
+        if reg is None:
+            return
+        reg.counter("autotune_decisions_total",
+                    "grid planning decisions made").inc()
+        reg.counter(
+            f"autotune_choice_t{dec.kv_tile_blocks}_s{dec.split_k}_total",
+            "decisions that picked this (kv_tile_blocks, split_k)").inc()
+        reg.gauge("autotune_kv_tile_blocks",
+                  "kv_tile_blocks of the latest decision"
+                  ).set(dec.kv_tile_blocks)
+        reg.gauge("autotune_split_k",
+                  "split_k of the latest decision").set(dec.split_k)
+        reg.histogram("autotune_predicted_step_seconds",
+                      "modeled decode step latency of the chosen grid"
+                      ).observe(dec.predicted_s)
 
     def observe_measured(self, dec: GridDecision, measured_s: float) -> None:
-        """Predicted-against-measured step latency goes to the metric
-        registry, which is not ported: nothing to record without it."""
+        """Close the predicted-vs-measured loop for one planned step."""
+        reg = self.registry
+        if reg is None or measured_s <= 0:
+            return
+        reg.histogram("autotune_measured_step_seconds",
+                      "measured decode step latency under planned grids"
+                      ).observe(measured_s)
+        reg.gauge("autotune_pred_over_measured",
+                  "latest predicted/measured step-latency ratio (a "
+                  "calibration signal, not a correctness one: the argmin "
+                  "is scale-free)").set(dec.predicted_s / measured_s)
 
     def summary(self) -> Dict[str, int]:
         """Decision counts per chosen grid, e.g. ``{"t4_s2": 37, ...}``."""

@@ -22,6 +22,12 @@ interleaved with decode steps. ``kv_dtype="int8"`` stores K/V as int8 with
 per-row scales. ``autotune="static" | "per-step"`` chooses the decode
 kernel's ``(kv_tile_blocks, split_k)`` grid by the modeled cost
 (``serve/autotune.py``) once at construction or in every decode step.
+``telemetry=Telemetry(...)`` (``serve/telemetry.py``) attaches the
+observability hooks: request traces, the step timeline, the kernel-cost
+and planner metrics and the int8 numerics monitor. Every stamp comes from
+the engine's clock (the telemetry's unless ``clock`` is given) and is a
+host dispatch time: no hook waits for the device, except the numerics
+probe, which reads its audit's result.
 
 Both engines run on the CUDA card unless ``device`` names another device;
 without a card the default raises. Both cast the matrix weights to the
@@ -50,6 +56,8 @@ from repro_torch.models.registry import model_fns
 from repro_torch.models.schema import tree_map, unstack_layers
 from repro_torch.serve.autotune import (AUTOTUNE_MODES, GridPlanner,
                                        default_candidates)
+from repro_torch.serve.kernel_costs import (decode_launch_cost,
+                                            prefill_launch_cost)
 from repro_torch.serve.kv_pool import PagedKVCache, PoolStats
 from repro_torch.serve.paged_step import (check_paged_support,
                                           paged_decode_step, paged_prefill,
@@ -60,6 +68,7 @@ from repro_torch.serve.paged_step import (check_paged_support,
                                           table_width_bucket)
 from repro_torch.serve.radix_cache import CacheStats, RadixCache
 from repro_torch.serve.scheduler import PREFILL, Request, Scheduler
+from repro_torch.serve.telemetry import Telemetry
 from repro_torch.utils.device import resolve_device
 
 
@@ -145,9 +154,16 @@ class EngineMetrics:
     tokens_discarded: int = 0    # sampled but thrown away by preemption
     wall_s: float = 0.0          # host time inside step() / run()
     peak_blocks: int = 0
+    # pool capacity (constant per engine; int8 pools fit ~2x the tokens of
+    # a bf16 pool at equal bytes — see PagedKVCache.bytes_per_block)
+    kv_dtype: str = ""           # resolved storage dtype name
+    #                              ("float32"/"bfloat16"/"int8")
+    pool_token_capacity: int = 0     # num_blocks * block_size
+    kv_pool_bytes: int = 0           # device bytes held by the pool tensors
     # prefix-cache counters (zero when the cache is disabled)
     prefill_tokens: int = 0      # prompt tokens actually run through prefill
     prefix_hit_tokens: int = 0   # prompt tokens reused from the radix tree
+    cache_evictions: int = 0     # blocks evicted from the tree
     cow_copies: int = 0          # partial tail blocks copied on write
     shared_blocks_peak: int = 0  # peak blocks referenced by >1 owner
 
@@ -178,10 +194,19 @@ class ContinuousEngine:
                  kv_dtype: Optional[str] = None,
                  kv_tile_blocks: int = 1, decode_split_k: int = 1,
                  autotune: str = "off", autotune_candidates=None,
+                 telemetry: Optional[Telemetry] = None,
+                 clock: Optional[Callable[[], float]] = None,
                  device=None):
         check_paged_support(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        # observability is opt-in: with telemetry=None every hook site is
+        # one None check. An attached Telemetry shares its clock with the
+        # engine and the scheduler (unless ``clock`` overrides), so every
+        # lifecycle stamp comes from one source
+        self.telemetry = telemetry
+        self._clock: Callable[[], float] = clock or (
+            telemetry.clock if telemetry is not None else time.monotonic)
         self.params = unstack_layers(cast_matrix_params(
             tree_map(lambda a: a.to(self.device), params),
             cfg.compute_dtype_), cfg.n_layers)
@@ -216,7 +241,7 @@ class ContinuousEngine:
         self.prefix_cache = (RadixCache(self.pool, evict_policy)
                              if prefix_cache else None)
         self.sched = Scheduler(self.pool, max_batch, max_len,
-                               cache=self.prefix_cache)
+                               cache=self.prefix_cache, clock=self._clock)
         self.nb_max = -(-max_len // block_size)
         # kernel grid autotuning (serve/autotune.py): "static" ranks the
         # candidate grids once, here, on the worst-case batch (every row at
@@ -229,14 +254,19 @@ class ContinuousEngine:
                 or default_candidates(kv_tile_blocks, decode_split_k),
                 n_q_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                 head_dim=cfg.head_dim, block_size=block_size,
-                kv_dtype=self.pool.kv_dtype)
+                kv_dtype=self.pool.kv_dtype,
+                registry=telemetry.registry if telemetry else None)
             if autotune == "static":
                 dec = self.planner.plan_decode(
                     np.full((max_batch,), max_len, np.int64),
                     table_width_bucket(self.nb_max, nb_max=self.nb_max))
                 self.kv_tile_blocks = dec.kv_tile_blocks
                 self.decode_split_k = dec.split_k
-        self.metrics = EngineMetrics()
+        # memo of the telemetry's decode LaunchCost: every cost term depends
+        # on a row only through len // block_size (the kernel attends
+        # len + 1), so keying on that vector is exact
+        self._cost_cache: Dict[tuple, object] = {}
+        self.metrics = self._fresh_metrics()
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._rows: List[Optional[Request]] = [None] * max_batch
         self._vec = torch.zeros((max_batch,), dtype=torch.int32,
@@ -249,8 +279,11 @@ class ContinuousEngine:
                temperature: float = 0.0,
                req_id: Optional[int] = None) -> Request:
         """Enqueue one request; returns its (streaming) Request handle."""
-        return self.sched.submit(np.asarray(prompt, np.int32), max_new,
-                                 temperature, req_id)
+        req = self.sched.submit(np.asarray(prompt, np.int32), max_new,
+                                temperature, req_id)
+        if self.telemetry is not None:
+            self.telemetry.on_submit(req)
+        return req
 
     def warmup(self) -> None:
         """Build the kernels and take the first launches out of serving
@@ -268,8 +301,10 @@ class ContinuousEngine:
 
     def reset(self) -> None:
         """Zero every engine-side aggregate coherently (metrics, pool and
-        cache stats, scheduler counters, the finished set) and flush the
-        prefix-cache tree. Refuses to run with requests in flight."""
+        cache stats, scheduler counters, the finished set, any attached
+        telemetry) and flush the prefix-cache tree, so a run/reset/run
+        sequence reports the second run as a fresh engine would. Refuses to
+        run with requests in flight."""
         if self.sched.has_work():
             raise RuntimeError("reset() with requests queued or running")
         self.drain()
@@ -278,12 +313,15 @@ class ContinuousEngine:
                                 device=self.device)
         self._pending.clear()
         self.sched.finished.clear()
+        self.sched.n_preemptions = 0
         self.sched.tokens_discarded = 0
-        self.metrics = EngineMetrics()
+        self.metrics = self._fresh_metrics()
         if self.prefix_cache is not None:
             self.prefix_cache.reset()
             self.prefix_cache.stats = CacheStats()
         self.pool.stats = PoolStats(self.pool.num_blocks)
+        if self.telemetry is not None:
+            self.telemetry.reset()
 
     def step(self) -> Dict[int, List[int]]:
         """Advance one iteration: admit + prefill (one chunk per prefilling
@@ -292,10 +330,18 @@ class ContinuousEngine:
         on the device until ``drain()``, except that with a prefix cache a
         step on which a request finishes drains the pipeline (the finished
         request's generated tokens are published to the tree)."""
-        t0 = time.monotonic()
+        tel = self.telemetry
+        t0 = self._clock()
         events: Dict[int, List[int]] = {}
+        # the reference reads the clock here to enforce deadlines, even
+        # when none is set; deadlines come with the resilience slice
+        # (ROADMAP.md Queue 1 item 2) — the read keeps the stamps' order
+        self._clock()
         self._sync_rows()
         admitted = self.sched.admit(self.max_admit_per_step)
+        if tel is not None:
+            for req in admitted:
+                tel.on_admit(req)
         if self.prefill_chunk:
             for req in self.sched.chunk_schedule(self.prefill_chunk,
                                                  self.prefill_budget):
@@ -304,29 +350,45 @@ class ContinuousEngine:
             for req in admitted:
                 self._do_prefill(req, events)
         self._drain_if_finishing(events)
-        self.sched.evict_finished()                # max_new == 1 requests
+        self._evict_finished(tel)                  # max_new == 1 requests
 
         before_discard = self.sched.tokens_discarded
         preempted = self.sched.ensure_decode_blocks()
         self.metrics.preemptions += len(preempted)
         self.metrics.tokens_discarded += \
             self.sched.tokens_discarded - before_discard
+        if tel is not None:
+            for req in preempted:
+                tel.on_preempt(req)
         self._sync_rows()
         if any(r.state != PREFILL for r in self.sched.running):
             self._do_decode_step(events)
             self._drain_if_finishing(events)
-            self.sched.evict_finished()
+            self._evict_finished(tel)
 
         self.metrics.steps += 1
-        self.metrics.wall_s += time.monotonic() - t0
+        dt = self._clock() - t0
+        self.metrics.wall_s += dt
         self.metrics.peak_blocks = self.pool.stats.peak_in_use
         self.metrics.shared_blocks_peak = self.pool.stats.peak_shared
         self.metrics.cow_copies = self.pool.stats.cow_copies
+        if self.prefix_cache is not None:
+            self.metrics.cache_evictions = self.prefix_cache.stats.evictions
+        if tel is not None:
+            tel.on_step_end(self, t0, dt)
         return events
+
+    def _evict_finished(self, tel: Optional[Telemetry]) -> None:
+        for req in self.sched.evict_finished():
+            if tel is not None:
+                tel.on_finish(req)
 
     def drain(self) -> Dict[int, List[int]]:
         """Materialize every in-flight sampled-token vector into its
         request's ``tokens`` list. Returns {req_id: fresh tokens}."""
+        tel = self.telemetry
+        n = len(self._pending)
+        t = self._clock() if (tel is not None and n) else 0.0
         events: Dict[int, List[int]] = {}
         for vec, rows in self._pending:
             arr = vec.cpu().numpy()              # host <-> device sync
@@ -336,6 +398,8 @@ class ContinuousEngine:
                     req.tokens.append(tok)
                     events.setdefault(req.req_id, []).append(tok)
         self._pending.clear()
+        if tel is not None and n:
+            tel.on_drain(t, self._clock() - t, n)
         return events
 
     def run(self, on_token: Optional[Callable[[int, List[int]], None]] = None
@@ -344,7 +408,7 @@ class ContinuousEngine:
         ``on_token`` the tokens are drained every step for streaming;
         without it the pipeline drains once at the end. ``metrics.wall_s``
         becomes the true wall time of the drive, final drain included."""
-        t0 = time.monotonic()
+        t0 = self._clock()
         w0 = self.metrics.wall_s
         while self.sched.has_work():
             events = self.step()
@@ -354,7 +418,7 @@ class ContinuousEngine:
                 for rid, toks in events.items():
                     on_token(rid, toks)
         self.drain()
-        self.metrics.wall_s = w0 + (time.monotonic() - t0)
+        self.metrics.wall_s = w0 + (self._clock() - t0)
         return self.pop_finished()
 
     def pop_finished(self) -> Dict[int, Request]:
@@ -364,6 +428,13 @@ class ContinuousEngine:
         return done
 
     # -- internals --------------------------------------------------------
+
+    def _fresh_metrics(self) -> EngineMetrics:
+        """Zeroed counters with the engine-constant pool-capacity fields
+        stamped (valid before the first step, kept across reset())."""
+        return EngineMetrics(kv_dtype=self.pool.kv_dtype,
+                             pool_token_capacity=self.pool.token_capacity,
+                             kv_pool_bytes=self.pool.hbm_bytes)
 
     def _sync_rows(self) -> None:
         """Vacate rows whose request left the running set (finished or
@@ -446,6 +517,8 @@ class ContinuousEngine:
         return lg
 
     def _do_prefill(self, req: Request, events: Dict[int, List[int]]) -> None:
+        tel = self.telemetry
+        t = self._clock() if tel is not None else 0.0
         plen = req.prompt_len
         m = req.n_prefix_hit
         lg = self._prefill_from_offset(req, m) if m > 0 else \
@@ -453,12 +526,21 @@ class ContinuousEngine:
         req.n_prefilled = plen
         self.metrics.prefill_tokens += plen - m
         self.metrics.prefix_hit_tokens += m
+        if tel is not None:
+            tel.on_prefill(req, "prefill-suffix" if m > 0 else "prefill",
+                           plen - m,
+                           self._pow2_bucket(-(-plen // self.block_size)),
+                           t, self._clock() - t)
         self._join_decode(req, lg, events)
+        if tel is not None:
+            tel.maybe_numerics_probe(self, req)
 
     def _do_prefill_chunk(self, req: Request,
                           events: Dict[int, List[int]]) -> None:
         """Advance one prefilling request by one chunk through the
         flash-prefill step; the final chunk's logits seed decoding."""
+        tel = self.telemetry
+        t = self._clock() if tel is not None else 0.0
         bs = self.block_size
         C = self.prefill_chunk
         m, sl = self.sched.next_chunk(req, C)
@@ -486,8 +568,22 @@ class ContinuousEngine:
         req.n_prefilled = m + sl
         self.metrics.prefill_tokens += sl
         self.metrics.prefill_chunks += 1
+        if tel is not None:
+            # modeled cost of the chunk's paged-prefill launch (per layer):
+            # pos0 = m, one row, real table cover = cover
+            cost = prefill_launch_cost(
+                C, [m], [cover], w, n_q_heads=self.cfg.n_heads,
+                n_kv_heads=self.cfg.n_kv_heads,
+                head_dim=self.cfg.head_dim, block_size=self.block_size,
+                kv_tile_blocks=self.kv_tile_blocks,
+                kv_dtype=self.pool.kv_dtype)
+            tel.on_prefill(req, "prefill-chunk", sl, w, t,
+                           self._clock() - t, cost=cost,
+                           launches=self.cfg.n_layers)
         if req.n_prefilled == req.prompt_len:
             self._join_decode(req, lg, events)
+            if tel is not None:
+                tel.maybe_numerics_probe(self, req)
         elif self.prefix_cache is not None:
             # publish completed chunks as they land, so a request admitted
             # while this prompt is still mid-prefill gets the longest hit
@@ -518,9 +614,13 @@ class ContinuousEngine:
             events.setdefault(req.req_id, []).append(tok)
         req.n_generated = 1
         req.state = "decoding"
-        req.t_first_token = time.monotonic()
+        # dispatch-time stamp (t_finish has the same convention)
+        req.t_first_token = self._clock()
+        req.t_last_token = req.t_first_token
         self.metrics.prefills += 1
         self.metrics.tokens_out += 1
+        if self.telemetry is not None:
+            self.telemetry.on_first_token(req)
 
     def _pow2_bucket(self, need: int) -> int:
         return table_width_bucket(need, nb_max=self.nb_max)
@@ -531,6 +631,8 @@ class ContinuousEngine:
             max(self.pool.n_blocks_of(r.req_id) for _, r in occ))
 
     def _do_decode_step(self, events: Dict[int, List[int]]) -> None:
+        tel = self.telemetry
+        t = self._clock() if tel is not None else 0.0
         B = self.max_batch
         occ = [(i, r) for i, r in enumerate(self._rows) if r is not None]
         greedy_only = all(r.temperature <= 0 for _, r in occ)
@@ -553,6 +655,7 @@ class ContinuousEngine:
         # the kernel attends lengths+1 on every row (zombies included,
         # masked): plan against what it does
         tile, split = self.kv_tile_blocks, self.decode_split_k
+        plan = None
         if self.autotune == "per-step":
             plan = self.planner.plan_decode(lengths + 1, w)
             tile, split = plan.kv_tile_blocks, plan.split_k
@@ -582,6 +685,36 @@ class ContinuousEngine:
             self._vec = self._tensor(toks)
         self.metrics.decode_steps += 1
         self.metrics.tokens_out += len(occ)
+        if tel is not None:
+            self._observe_decode(tel, t, occ, lengths, w, tile, split, plan)
+
+    def _observe_decode(self, tel: Telemetry, t: float, occ, lengths, w: int,
+                        tile: int, split: int, plan) -> None:
+        """The decode step's telemetry: its modeled K1 cost (the plan's, or
+        memoized on the host lengths), the timeline slice, the planner's
+        measured step and every row's token gap — host work only."""
+        now = self._clock()
+        if plan is not None:
+            cost = plan.cost
+        else:
+            key = (w, tile, split, (lengths // self.block_size).tobytes())
+            cost = self._cost_cache.get(key)
+            if cost is None:
+                if len(self._cost_cache) >= 4096:
+                    self._cost_cache.clear()
+                cost = decode_launch_cost(
+                    lengths + 1, w, n_q_heads=self.cfg.n_heads,
+                    n_kv_heads=self.cfg.n_kv_heads,
+                    head_dim=self.cfg.head_dim, block_size=self.block_size,
+                    kv_tile_blocks=tile, split_k=split,
+                    kv_dtype=self.pool.kv_dtype)
+                self._cost_cache[key] = cost
+        tel.on_decode_step(rows=len(occ), table_width=w, t_start=t,
+                           dur=now - t, split_k=split, kv_tile_blocks=tile,
+                           cost=cost, launches=self.cfg.n_layers)
+        if plan is not None:
+            self.planner.observe_measured(plan, now - t)
+        tel.on_decode_tokens([r for _, r in occ], now)
 
     def _sample_rows(self, lg: torch.Tensor, temps: List[float],
                      greedy_dev: torch.Tensor) -> np.ndarray:

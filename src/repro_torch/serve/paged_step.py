@@ -17,6 +17,10 @@ runs eagerly, loops over the layers, and **updates the pools in place**
 * ``paged_prefill_chunked``  — one chunk of a long prompt: per layer the
   chunk's rows are written into the pool first, then the chunk attends the
   pool through the block table (``kernels/flash_prefill_paged``).
+* ``paged_prefill_audit``    — the numerics monitor: one prompt through a
+  full-precision and an int8-fake-quant branch in lockstep (dense
+  closed-form Softermax, no kernel), with the IntMax and int8-scale
+  margin counters.
 * ``paged_decode_step``      — one token for the whole running batch: per
   layer, write the new K/V row, then paged Softermax decode attention over
   the pool (``kernels/flash_decode_paged``). Inactive rows carry table 0
@@ -40,6 +44,8 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.quant import (DEFAULT_BITWIDTHS, percentile_scale,
+                                    qformat_clip_count)
 from repro_torch.kernels.flash_decode_paged import (flash_decode_paged_op,
                                                     gather_kv_dequant)
 from repro_torch.kernels.flash_prefill_paged import flash_prefill_paged_op
@@ -166,6 +172,98 @@ def paged_prefill(params, tokens: torch.Tensor, last_pos: torch.Tensor,
         ks.append(k)
         vs.append(v)
     return _head(params, x, last_pos, cfg), torch.stack(ks), torch.stack(vs)
+
+
+def _audit_attention(q, k, v, intmax: bool):
+    """Dense causal Softermax in closed form (the serving kernels' exp2 /
+    running-IntMax recurrence is order-free, so the closed form is exact):
+    q (B, Hq, S, D) pre-scaled, k/v (B, Hkv, S, D). Returns the output, the
+    per-row IntMax m (B, Hkv, G, S), the fp32 scores s and the causal
+    mask, for the numerics monitors."""
+    B, Hq, Sq, D = q.shape
+    Hkv = k.shape[1]
+    qg = q.reshape(B, Hkv, Hq // Hkv, Sq, D)
+    s = qg.float() @ k.float()[:, :, None].transpose(-1, -2)
+    causal = torch.ones((Sq, Sq), dtype=torch.bool, device=q.device).tril()
+    s = torch.where(causal, s, torch.full_like(s, attn_mod.NEG_INF))
+    m = torch.amax(torch.ceil(s) if intmax else s, dim=-1, keepdim=True)
+    p = torch.exp2(s - m)
+    d = torch.sum(p, dim=-1, keepdim=True)
+    o = (p / d).to(v.dtype) @ v[:, :, None]
+    return o.reshape(B, Hq, Sq, D).to(q.dtype), m[..., 0], s, causal
+
+
+def paged_prefill_audit(params, tokens: torch.Tensor,
+                        last_pos: torch.Tensor, cfg: ModelConfig):
+    """Lockstep full-precision against int8-fake-quant prefill of one
+    prompt: the numerics monitor behind ``Telemetry.numerics_probe``.
+
+    One layer loop carries both residual streams: the reference branch
+    attends the exact projected K/V, the quantized branch round-trips each
+    layer's K/V through the pool's int8 grid first (``_fake_quant_kv``,
+    what a later reader dequantizes from the pool), and both use the same
+    dense Softermax closed form, so the logit delta isolates the int8
+    storage error. The quantized branch's scores and K/V feed the
+    hardware-margin monitors:
+
+    * ``score_intmax_max`` / ``intmax_overflow_rows`` — each row's running
+      IntMax against the paper's Q(6,2) LocalMax format;
+    * ``score_inp_clip_vals`` — causally valid scores outside the Q(6,2)
+      Inp format;
+    * ``kv_amax_max`` / ``kv_scale_sat_rows`` — per-(head, token) K/V amax
+      against a per-layer 99.999%-percentile static scale: rows a
+      statically calibrated int8 pool would clip.
+
+    tokens (B, S) unpadded, last_pos (B,). Returns ``(lg_ref, lg_q,
+    stats)``: logits (B, V) of both branches and a dict of scalar tensors
+    (summed or maxed over layers), all on the tokens' device."""
+    if cfg.family == "moe":
+        raise NotImplementedError(
+            "paged_prefill_audit of the moe family needs moe_apply, not "
+            "yet ported (ROADMAP Queue 1 item 4)")
+    B, Sp = tokens.shape
+    _, intmax = attn_mod._mode(cfg)
+    positions = torch.arange(Sp, dtype=torch.int32,
+                             device=tokens.device).expand(B, Sp)
+    fmt_max = DEFAULT_BITWIDTHS.localmax
+    fmt_inp = DEFAULT_BITWIDTHS.inp
+    x_ref = x_q = embed(params["embed"], tokens, cfg)
+    mx, ovf, clip, amax, sat = [], [], [], [], []
+    for layer in range(cfg.n_layers):
+        bp = layer_params(params["blocks"], layer)
+        # reference branch: exact K/V
+        h = rmsnorm(bp["ln1"], x_ref, cfg.norm_eps)
+        q, k, v = attn_mod._project_qkv(bp["mixer"], h, cfg, positions)
+        o, _, _, _ = _audit_attention(attn_mod.q_scale(q, cfg), k, v,
+                                      intmax)
+        x_ref = x_ref + attn_mod._out_proj(bp["mixer"], o, cfg)
+        x_ref = x_ref + _ffn(bp, x_ref, cfg)
+        # quantized branch: K/V through the pool's int8 grid
+        h = rmsnorm(bp["ln1"], x_q, cfg.norm_eps)
+        q, k, v = attn_mod._project_qkv(bp["mixer"], h, cfg, positions)
+        amax_k = torch.amax(torch.abs(k), dim=-1)     # (B, Hkv, S)
+        amax_v = torch.amax(torch.abs(v), dim=-1)
+        amax.append(torch.maximum(torch.amax(amax_k), torch.amax(amax_v)))
+        sat.append(torch.sum(amax_k > 127.0 * percentile_scale(k)) +
+                   torch.sum(amax_v > 127.0 * percentile_scale(v)))
+        o, m, s, valid = _audit_attention(
+            attn_mod.q_scale(q, cfg), _fake_quant_kv(k), _fake_quant_kv(v),
+            intmax)
+        x_q = x_q + attn_mod._out_proj(bp["mixer"], o, cfg)
+        x_q = x_q + _ffn(bp, x_q, cfg)
+        mx.append(torch.amax(m))
+        ovf.append(torch.sum(m > fmt_max.max_value))
+        clip.append(qformat_clip_count(s, fmt_inp,
+                                       where=valid.expand(s.shape)))
+    stats = {
+        "score_intmax_max": torch.amax(torch.stack(mx)),
+        "intmax_overflow_rows": torch.sum(torch.stack(ovf)),
+        "score_inp_clip_vals": torch.sum(torch.stack(clip)),
+        "kv_amax_max": torch.amax(torch.stack(amax)),
+        "kv_scale_sat_rows": torch.sum(torch.stack(sat)),
+    }
+    return (_head(params, x_ref, last_pos, cfg),
+            _head(params, x_q, last_pos, cfg), stats)
 
 
 def scatter_prefill(k_pool, v_pool, ks, vs, block_ids, k_scale=None,

@@ -104,6 +104,10 @@ class MatchResult:
     tail_tokens: int                   # leading rows of ``partial`` reused
     n_tokens: int                      # total matched tokens
 
+    @property
+    def n_full_blocks(self) -> int:
+        return len(self.path)
+
 
 @dataclasses.dataclass
 class AdmitPlan:

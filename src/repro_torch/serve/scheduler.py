@@ -91,9 +91,13 @@ class Request:
                                      # == prompt_len once prefill completes)
     epoch: int = 0                   # bumped on preemption: stale in-flight
                                      # token vectors are discarded by epoch
-    # lifecycle stamps (time.monotonic)
+    n_preemptions: int = 0
+    # lifecycle stamps from the owning scheduler/engine clock (monotonic by
+    # default; injectable for deterministic telemetry tests)
     t_submit: float = 0.0
-    t_first_token: float = 0.0      # dispatch of the first token
+    t_admit: float = 0.0             # latest admission (re-stamped on readmit)
+    t_first_token: float = 0.0       # dispatch of the first token
+    t_last_token: float = 0.0        # latest decode-token dispatch (TPOT)
     t_finish: float = 0.0
 
     @property
@@ -122,9 +126,11 @@ class Scheduler:
     """
 
     def __init__(self, pool: PagedKVCache, max_batch: int,
-                 max_len: int, cache: Optional["RadixCache"] = None):
+                 max_len: int, cache: Optional["RadixCache"] = None,
+                 clock=time.monotonic):
         self.pool = pool
         self.cache = cache
+        self._clock = clock          # request lifecycle timestamps
         self.max_batch = max_batch
         self.max_len = max_len
         self.waiting: Deque[Request] = deque()
@@ -132,6 +138,7 @@ class Scheduler:
         self.finished: Dict[int, Request] = {}
         self._next_id = 0
         self._reserved: Dict[int, int] = {}   # future growth blocks held
+        self.n_preemptions = 0
         self.tokens_discarded = 0     # generated tokens thrown away by
         #                               preemption (recomputed on readmit)
 
@@ -173,7 +180,7 @@ class Scheduler:
                 f"pool holds {self.pool.num_blocks} blocks "
                 f"({self.pool.token_capacity} tokens) — raise num_blocks")
         req = Request(rid, np.asarray(prompt, np.int32), max_new,
-                      temperature, t_submit=time.monotonic())
+                      temperature, t_submit=self._clock())
         self.waiting.append(req)
         return req
 
@@ -224,6 +231,7 @@ class Scheduler:
                 self.pool.alloc(nxt.req_id, need - spliced)
             self._reserved[nxt.req_id] = total - need
             nxt.state = PREFILL
+            nxt.t_admit = self._clock()
             nxt.n_prefix_hit = hit
             nxt.n_prefilled = hit
             nxt.n_cached = plen
@@ -344,7 +352,10 @@ class Scheduler:
         req.n_cached = 0
         req.n_prefix_hit = 0
         req.n_prefilled = 0
+        req.t_last_token = 0.0       # readmission restarts the TPOT chain
         req.epoch += 1
+        req.n_preemptions += 1
+        self.n_preemptions += 1
         self.waiting.appendleft(req)
 
     # -- completion -------------------------------------------------------
@@ -357,7 +368,7 @@ class Scheduler:
             self._reserved.pop(req.req_id, None)
             self.running.remove(req)
             req.state = FINISHED
-            req.t_finish = time.monotonic()
+            req.t_finish = self._clock()
             self.finished[req.req_id] = req
         return done
 

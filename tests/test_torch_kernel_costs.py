@@ -7,9 +7,9 @@ oracles (``decode_gather_oracle``, ``prefill_gather_oracle``), which run
 the gathers on torch tensors and count bytes. ``serve/autotune.py``:
 ``GridPlanner`` decisions and ``predicted_s`` exactly equal to JAX's over
 random lengths trajectories, ``default_candidates`` equal, the argmin and
-memoization properties of the reference's tests. The reference's
-telemetry tests (metric registry, kernel-cost counters) have no
-counterpart: the port's planner takes no registry yet.
+memoization properties of the reference's tests, and a planner given a
+metric registry records its decisions and measurements there (held to the
+JAX planner's registry in ``test_torch_telemetry.py``).
 """
 import dataclasses
 
@@ -22,9 +22,9 @@ from repro.serve import kernel_costs as jkc
 from repro_torch.kernels.flash_decode_paged import (decode_gather_oracle,
                                                     split_layout)
 from repro_torch.kernels.flash_prefill_paged import prefill_gather_oracle
-from repro_torch.serve import (CostParams, GridPlanner, default_candidates,
-                               decode_launch_cost, estimate_seconds,
-                               prefill_launch_cost)
+from repro_torch.serve import (CostParams, GridPlanner, MetricRegistry,
+                               default_candidates, decode_launch_cost,
+                               estimate_seconds, prefill_launch_cost)
 from repro_torch.serve import kernel_costs as tkc
 
 _rng = np.random.default_rng(11)
@@ -280,11 +280,20 @@ class TestGridPlanner:
         assert d3 is not d1
         assert sum(pl.summary().values()) == 3
 
-    def test_registry_is_not_ported(self):
-        with pytest.raises(NotImplementedError, match="registry"):
-            self._planner(registry=object())
+    def test_registry_records_decisions_and_measurements(self):
+        reg = MetricRegistry()
+        pl = self._planner(registry=reg)
+        dec = pl.plan_decode(np.array([40]), 4)
+        pl.observe_measured(dec, 1e-3)
+        pl.observe_measured(dec, 0.0)          # not recorded
+        assert reg.get("autotune_decisions_total").value == 1
+        assert reg.get("autotune_measured_step_seconds").count == 1
+        assert reg.get("autotune_pred_over_measured").value == \
+            dec.predicted_s / 1e-3
+        # without a registry the decision trail alone is kept
         pl = self._planner()
         pl.observe_measured(pl.plan_decode(np.array([40]), 4), 1e-3)
+        assert sum(pl.summary().values()) == 1
 
     def test_default_candidates_closed_and_deduped(self):
         cands = default_candidates(4, 2)

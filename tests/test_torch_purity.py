@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from repro_torch.benchmarks import (autotune_bench, decode_paged_bench,
-                                    table3_accuracy)
+                                    serve_throughput, table3_accuracy)
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
 from repro_torch.serve import ContinuousEngine, ServeEngine
@@ -31,6 +31,12 @@ def _imported_roots(path: Path):
             yield node.module.split(".")[0]
 
 
+def test_the_walk_covers_the_telemetry_modules():
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {"src/repro_torch/serve/metrics.py",
+            "src/repro_torch/serve/telemetry.py"} <= names
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
@@ -45,6 +51,12 @@ def test_entry_points_default_to_the_card():
     assert launch_serve.parse_args([]).engine == "static"
     for engine in ("static", "paged"):
         assert launch_serve.parse_args(["--engine", engine]).device == "cuda"
+    tel = launch_serve.parse_args(["--engine", "paged", "--telemetry",
+                                   "--metrics-out", "m.prom", "--trace-out",
+                                   "t.json", "--numerics-every", "1"])
+    assert tel.device == "cuda" and tel.telemetry is True
+    assert serve_throughput.parse_args([]).device == "cuda"
+    assert serve_throughput.parse_args([]).no_overhead_check is False
     assert launch_train.parse_args([]).device == "cuda"
     assert table3_accuracy.parse_args([]).device == "cuda"
     assert decode_paged_bench.parse_args([]).device == "cuda"

@@ -25,6 +25,8 @@ prefill savings and the int8 capacity ratio EXACTLY, the logit-error probe
 within 1e-4 absolute, every request's greedy stream EXACTLY the JAX
 engine's. A record built from smoke readings carries the reference's
 fields, the port's provenance and the commit the caller passes.
+``serve_throughput`` without ``--no-overhead-check`` runs its telemetry
+on/off rounds and prints their ratio and latency quantiles.
 """
 import json
 import math
@@ -159,11 +161,47 @@ def test_serving_bench_smoke_on_cpu_writes_nothing(bench, argv, out,
     assert bench.parse_args([]).device == "cuda"
 
 
-def test_serve_throughput_needs_telemetry_for_its_overhead_gate():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        serve_throughput.main(["--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="no-overhead-check"):
-        serve_throughput.main(["--device", "cpu", "--engine", "paged"])
+def test_serve_throughput_runs_its_overhead_check_on_cpu(capsys):
+    """The smoke arguments without ``--no-overhead-check``: each round
+    also drives the paged engine with telemetry on, and the bench prints
+    the paired tok/s, the best-of on/off ratio, the median of the paired
+    ratios and the telemetry drives' TTFT, TPOT and e2e quantiles before
+    its >= 0.95 gate; one untimed plain drive precedes the rounds. The gate's
+    reading is a host timing of a 2-layer model on a shared CPU, where a
+    decode step takes about a millisecond and the hooks a few percent of
+    it (the reference's CLI misses it too at these arguments): the test
+    holds the check's wiring and the gate's rule on given ratios, not the
+    reading."""
+    argv = [a for a in SERVE_SMALL if a != "--no-overhead-check"]
+    try:
+        assert serve_throughput.main(argv) > 0
+    except serve_throughput.OverheadGateMissed:
+        pass
+    lines = capsys.readouterr().out.splitlines()
+    over = [ln.split(",") for ln in lines
+            if ln.startswith("serve_throughput,telemetry_on_over_off,")]
+    pairs = [ln.split(",")[2:] for ln in lines
+             if ln.startswith("serve_throughput,telemetry_rounds_tok_s,")]
+    med = [float(ln.split(",")[2]) for ln in lines if ln.startswith(
+        "serve_throughput,telemetry_on_over_off_median,")]
+    warm = [ln for ln in lines
+            if ln.startswith("serve_throughput,telemetry_warm_drive_tok_s,")]
+    assert len(over) == 1 and float(over[0][2]) > 0
+    assert len(pairs) == 1 and len(pairs[0]) == 1      # one round
+    assert med == [float(over[0][2])]                  # one pair: equal
+    assert len(warm) == 1                              # before the rounds
+    counts = {}
+    for ln in lines:
+        f = ln.split(",")
+        if f[1] in ("ttft", "tpot", "e2e"):
+            assert f[2::2][:3] == ["p50_ms", "p90_ms", "p99_ms"]
+            assert 0 < float(f[3]) <= float(f[5]) <= float(f[7])
+            counts[f[1]] = int(f[9])
+    # 6 requests of 4 tokens in the one telemetry drive
+    assert counts == {"ttft": 6, "tpot": 18, "e2e": 6}
+    serve_throughput.check_overhead(0.95)
+    with pytest.raises(serve_throughput.OverheadGateMissed):
+        serve_throughput.check_overhead(0.949)
 
 
 @pytest.mark.parametrize("argv", [["--smoke"], []], ids=["smoke", "full"])
@@ -313,8 +351,9 @@ def test_serve_throughput_streams_match_jax_engines(qwen):
     static = serve_throughput.make_static_driver(
         tcfg, tparams, wl, slots=slots, pad_len=a.max_prompt,
         max_new=a.max_new, device="cpu")
-    s_rounds, p_rounds, ratios, m, reqs = serve_throughput.run_rounds(
-        static, paged, 1)
+    s_rounds, p_rounds, t_rounds, ratios, m, reqs = \
+        serve_throughput.run_rounds(static, paged, 1)
+    assert t_rounds == []
     assert len(ratios) == 1 and m.decode_steps > 0
     streams = [r.tokens for r in reqs[0]]
     # the JAX paged engine on the same prompts, all submitted at once: the

@@ -18,10 +18,21 @@ the launcher's summary.
   ``tok_per_s``, ``prefill_savings`` and ``shared_blocks_peak`` are held
   to their definitions on them (``prefill_savings`` equal to the JAX
   engine's).
+  The fields are the reference's minus its seven resilience counters, in
+  its order; after a prefix-sharing run of both engines on one
+  ``ManualClock`` each and after ``warmup()``, every shared value is
+  EXACTLY equal for bfloat16 and int8 pools (the pool's dtype name, token
+  capacity and bytes included).
+* ``MatchResult.n_full_blocks``: EXACTLY the reference's on matches of
+  full, partial, tail-only and missing prefixes.
 * The launcher: ``--optimized`` applies ``cfg.with_opts(True)`` (an int8
-  pool) and the paged run logs the reference's end-of-run lines.
+  pool) and the paged run logs the reference's end-of-run lines; with
+  ``--telemetry --metrics-out --trace-out --numerics-every 1 --kv-dtype
+  int8`` it writes both files and logs the reference's quantile and
+  numerics lines.
 """
 import dataclasses
+import json
 import logging
 
 import jax
@@ -33,14 +44,16 @@ from repro.models.registry import model_fns
 from repro.models.registry import reduce_config as jax_reduce_config
 from repro.serve import ContinuousEngine as JaxEngine
 from repro.serve import EngineMetrics as JaxMetrics
+from repro.serve import ManualClock as JaxClock
 from repro.serve.kv_pool import PagedKVCache as JaxPool
 from repro.serve.kv_pool import PoolExhausted as JaxExhausted
 from repro.serve.radix_cache import RadixCache as JaxRadix
 from repro_torch.bridge import params_from_numpy
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models.registry import get_config, reduce_config
-from repro_torch.serve import (ContinuousEngine, EngineMetrics, PagedKVCache,
-                               PoolExhausted, RadixCache, check_invariants)
+from repro_torch.serve import (ContinuousEngine, EngineMetrics, ManualClock,
+                               PagedKVCache, PoolExhausted, RadixCache,
+                               check_invariants, parse_prometheus_text)
 
 BS, NB = 4, 24
 
@@ -290,3 +303,116 @@ def test_launcher_summary_and_optimized(caplog, optimized):
         "tokens computed)" in text
     assert "prefix cache[lru]: hit 0/40 prompt tokens (0%), " in text
     assert "prefill savings 1.00x" in text
+
+
+RESILIENCE = ("cancelled", "deadline_misses", "quarantined", "shed",
+              "faults_injected", "transient_retries", "readback_audits")
+
+
+def test_engine_metrics_fields_are_the_references_but_resilience():
+    want = [f.name for f in dataclasses.fields(JaxMetrics)
+            if f.name not in RESILIENCE]
+    assert [f.name for f in dataclasses.fields(EngineMetrics)] == want
+    for f, jf in zip(dataclasses.fields(EngineMetrics),
+                     [f for f in dataclasses.fields(JaxMetrics)
+                      if f.name not in RESILIENCE]):
+        assert (f.type, f.default) == (jf.type, jf.default), f.name
+
+
+@pytest.fixture(scope="module")
+def llama_bridged():
+    jcfg = jax_reduce_config(jax_get_config("llama3.2-3b"))
+    tcfg = reduce_config(get_config("llama3.2-3b"))
+    jparams = model_fns(jcfg).init(jax.random.PRNGKey(0))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg)
+    return jcfg, tcfg, jparams, tparams
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_engine_metrics_values_match_jax_exactly(llama_bridged, kv):
+    jcfg, tcfg, jparams, tparams = llama_bridged
+    rng = np.random.default_rng(4)
+    head = rng.integers(1, tcfg.vocab_size, 19).astype(np.int32)
+    wave = [np.concatenate([head, rng.integers(1, tcfg.vocab_size, n)])
+            .astype(np.int32) for n in (5, 9, 3)]
+    kw = dict(block_size=8, num_blocks=40, max_batch=2, max_len=48,
+              kv_dtype=kv)
+    jeng = JaxEngine(jcfg, jparams, clock=JaxClock(tick=1e-4), **kw)
+    teng = ContinuousEngine(tcfg, tparams, clock=ManualClock(tick=1e-4),
+                            device="cpu", **kw)
+
+    def shared():
+        t = dataclasses.asdict(teng.metrics)
+        j = dataclasses.asdict(jeng.metrics)
+        return t, {k: j[k] for k in t}
+
+    for eng in (jeng, teng):
+        for p in wave:
+            eng.submit(p, 5)
+        eng.run()
+    t, j = shared()
+    assert t == j
+    assert t["prefix_hit_tokens"] > 0 and t["cache_evictions"] == \
+        teng.prefix_cache.stats.evictions
+    assert t["kv_dtype"] == {"bf16": "bfloat16", "int8": "int8"}[kv]
+    assert t["kv_pool_bytes"] == teng.pool.hbm_bytes
+    assert t["pool_token_capacity"] == 40 * 8
+    for eng in (jeng, teng):
+        eng.warmup()
+    t, j = shared()
+    assert t == j and t["steps"] == 0 and t["kv_pool_bytes"] > 0
+
+
+def test_match_result_full_blocks_match_jax(cfgs):
+    jcfg, tcfg = cfgs
+    jpool, tpool = JaxPool(jcfg, NB, BS), PagedKVCache(tcfg, NB, BS,
+                                                       device="cpu")
+    jtree, ttree = JaxRadix(jpool), RadixCache(tpool)
+    rng = np.random.default_rng(9)
+    a = rng.integers(1, 40, 18).astype(np.int32)
+    b = np.concatenate([a[:6], rng.integers(1, 40, 7)]).astype(np.int32)
+    for rid, toks in enumerate((a, b)):
+        for pool, tree in ((jpool, jtree), (tpool, ttree)):
+            tree.admit(rid, toks, ensure_free=pool.blocks_for(len(toks)))
+            pool.alloc(rid, pool.blocks_for(len(toks)) -
+                       pool.n_blocks_of(rid))
+            tree.insert(rid, toks)
+    probes = [a, a[:9], a[:4], b, np.concatenate([b, [5, 5, 5]]),
+              rng.integers(41, 60, 12)]
+    got = [ttree.plan(p.astype(np.int32)).match.n_full_blocks
+           for p in probes]
+    assert got == [jtree.plan(p.astype(np.int32)).match.n_full_blocks
+                   for p in probes]
+    assert got[0] > 0 and got[-1] == 0 and len(set(got)) > 2
+
+
+def test_launcher_telemetry_sinks(caplog, capsys, tmp_path):
+    prom, trace = tmp_path / "x.prom", tmp_path / "t.json"
+    argv = ["--engine", "paged", "--reduced", "--device", "cpu", "--batch",
+            "2", "--prompt-len", "20", "--max-new", "4", "--block-size",
+            "8", "--num-blocks", "24", "--telemetry", "--metrics-out",
+            str(prom), "--trace-out", str(trace), "--numerics-every", "1",
+            "--kv-dtype", "int8"]
+    caplog.set_level(logging.INFO, logger="repro_torch.launch.serve")
+    launch_serve.main(argv)
+    text = caplog.text
+    for nm in ("ttft", "tpot", "e2e"):
+        assert f"{nm}: p50 " in text and " p99 " in text
+    assert "tpot: p50 " in text and "(n=6)" in text
+    assert "numerics: max |full - int8| logit delta " in text
+    assert "over 2 probes" in text
+    assert "kernel cost: " in text and "MiB gather DMA" in text
+    assert f"metrics -> {prom}" in text and f"step timeline -> {trace}" \
+        in text
+    fams = parse_prometheus_text(prom.read_text())
+    assert fams["numerics_probes_total"]["samples"][0][2] == 2.0
+    assert fams["serve_requests_finished_total"]["samples"][0][2] == 2.0
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert {e["name"] for e in events if e["ph"] == "X"} >= \
+        {"step", "prefill", "decode", "drain"}
+    assert "# final metric registry" not in capsys.readouterr().out
+    # no sink: the exposition goes to stdout
+    launch_serve.main(argv[:15] + ["--telemetry"])
+    out = capsys.readouterr().out
+    assert out.startswith("# final metric registry")
+    assert "serve_ttft_seconds_count 2" in out
