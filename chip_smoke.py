@@ -194,6 +194,23 @@ Phases, in order; any failure raises and exits non-zero:
    beside its >= 0.95 gate (read, not gated), the median of the paired
    ratios and the quantile lines. Every K1 launch on the bulk-copy route,
    every K2 launch on the tensor cores.
+28. (N) The serving engine's resilience layer at llama3.2-3b's full width
+   in bf16 with phase 13's weights and phase 5's prompts, 32 new tokens:
+   (a) the clean readback-audit deltas of every request, one-shot and
+   chunked-256 prefill, bf16 and int8 pools, with how many clean requests
+   the reference's default ``GuardConfig`` would quarantine; (b) the
+   canned fault plan with the guard at thresholds derived from (a)
+   (``resilience_bench.guard_config_for``, printed), chunked-256, bf16
+   pool: the kv_corrupt victim quarantined and its tree nodes purged,
+   every other greedy stream equal to the fault-free drive's, the
+   invariants after every step, no leaked block, every engine fault kind
+   in the log, the seven resilience counters and the guard's transitions;
+   (c) the same storm unguarded: a stream diverges; (d)
+   ``resilience_bench``'s rounds at full width (its other three gates
+   asserted, the guarded/fault-free tok/s ratio read beside its 0.70
+   gate) and its CLI at the reference's reduced defaults in a child
+   process (a gate it misses is printed, not fatal). Every K1 launch on
+   the bulk-copy route, every K2 launch on the tensor cores.
 
 Phase 4 also runs one engine with ``attention_impl="flash"``, whose one-shot
 prefill goes through K3.
@@ -3306,6 +3323,265 @@ def phase_telemetry(dev, card):
     print(f"{tag} phase time {time.perf_counter() - t_phase:.1f} s")
 
 
+def _deltas_text(deltas) -> str:
+    """Per-request readback deltas (workload order) with their max and
+    p50."""
+    import numpy as np
+    errs = [e for _, e in sorted(deltas)]
+    return (f"[{', '.join(f'{e:.3f}' for e in errs)}] max {max(errs):.3f} "
+            f"p50 {float(np.median(errs)):.3f}")
+
+
+def _resilience_cli(card):
+    """``resilience_bench``'s CLI at the reference's reduced defaults (its
+    gates as written), in a child process. Its tok/s gate is read: a miss
+    is printed (and recorded in ``ROADMAP.md``); any other gate it misses,
+    or any other failure, ends the run."""
+    import os
+    tag = "[28]"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.benchmarks.resilience_bench"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in out.stdout.splitlines()
+             if ln.startswith("resilience,")]
+    missed = out.stderr.rsplit("resilience gates failed: ", 1)[-1] \
+        .strip().split("; ") if out.returncode else []
+    check(all(m.startswith("guarded tok/s ratio") for m in missed),
+          f"resilience_bench CLI exited {out.returncode}: "
+          f"{out.stderr[-2000:]}")
+    for ln in lines:
+        print(f"{tag} (d) CLI {ln}")
+    verdict = "all four gates met" if out.returncode == 0 else (
+        "GATE MISSED: " + out.stderr.strip().splitlines()[-1])
+    print(f"{tag} (d) resilience_bench CLI at the reference's reduced "
+          f"defaults (qwen3-4b reduced, float32, 8 pairs, 96 new tokens, 3 "
+          f"rounds): {verdict}; {time.perf_counter() - t0:.1f} s with its "
+          f"build; {card}")
+
+
+def phase_resilience(dev, card):
+    """(N) The serving engine's resilience layer at llama3.2-3b's full
+    width in bf16 with phase 13's weights and phase 5's prompts: (a) the
+    clean readback audit deltas (one-shot and chunked-256, bf16 and int8
+    pools) and what the reference's default thresholds would do with
+    them; (b) the canned fault plan under the guard with thresholds
+    derived from (a), chunked-256, bf16 pool; (c) the same storm
+    unguarded; (d) ``resilience_bench``'s rounds at full width and its CLI
+    at the reference's reduced defaults. Every K1 launch on the bulk-copy
+    route, every K2 launch on the tensor cores (bf16 pools)."""
+    import numpy as np
+    import torch
+    from repro_torch.benchmarks import resilience_bench as rb
+    from repro_torch.serve import (ENGINE_FAULT_KINDS, ContinuousEngine,
+                                   EngineGuard, FaultInjector, GuardConfig,
+                                   canned_plan)
+    tag = "[28]"
+    t_phase = time.perf_counter()
+    cfg, params, _ = _full_width_llama(dev)
+    V = cfg.vocab_size
+    rng = np.random.default_rng(0)           # phase 5's prompts
+    lens = rng.integers(128, 1025, 8)
+    prompts = [rng.integers(1, V, n).astype(np.int32) for n in lens]
+    max_new = 32
+    base = dict(block_size=16, num_blocks=2048, max_batch=8,
+                max_len=1024 + max_new, device=dev)
+    default = GuardConfig()
+
+    # -- (a) the clean audit ----------------------------------------------
+    clean = {}
+    for kv in ("bf16", "int8"):
+        for chunk in (0, 256):
+            eng = ContinuousEngine(
+                cfg, params, prefill_chunk=chunk,
+                kv_dtype=None if kv == "bf16" else kv,
+                guard=EngineGuard(GuardConfig(**rb.NO_QUARANTINE)), **base)
+            _reset_counts()
+            deltas, _ = rb.audit_deltas(eng, prompts, max_new)
+            k1 = _check_k1_bulk(f"clean audit {kv} chunk {chunk}")
+            k2 = _check_k2_tc(f"clean audit {kv}") if chunk and \
+                kv == "bf16" else None
+            errs = [e for _, e in deltas]
+            check(len(deltas) == len(prompts) and
+                  all(math.isfinite(e) for e in errs),
+                  f"clean audit {kv} chunk {chunk}: {deltas}")
+            clean[kv, chunk] = errs
+            n_q = sum(e >= default.quarantine_error for e in errs)
+            n_d = sum(e >= default.logit_error_degraded for e in errs)
+            print(f"{tag} (a) clean readback deltas, {kv} pool, "
+                  f"{'chunked-256' if chunk else 'one-shot'}: "
+                  f"{_deltas_text(deltas)}; the default GuardConfig "
+                  f"(quarantine {default.quarantine_error}, degraded "
+                  f"{default.logit_error_degraded}) would quarantine {n_q} "
+                  f"of {len(errs)} clean requests and degrade on {n_d}; "
+                  f"K1 {k1}" + (f", K2 {k2}" if k2 else "") + f"; {card}")
+            del eng
+            torch.cuda.empty_cache()
+    clean_max = max(clean["bf16", 0] + clean["bf16", 256])
+    config = rb.guard_config_for(clean_max)
+    print(f"{tag} thresholds for the bf16 deployment (guard_config_for: "
+          f"degraded at 2x and quarantine at 4x the largest clean bf16 "
+          f"delta {clean_max:.3f}, never below the defaults): "
+          f"logit_error_degraded {config.logit_error_degraded:.3f}, "
+          f"quarantine_error {config.quarantine_error:.3f}")
+
+    # -- (b) the canned plan under the guard, chunked-256, bf16 pool ------
+    chunked = dict(base, prefill_chunk=256)
+    eng = ContinuousEngine(cfg, params, **chunked)
+    ff_logits = _paged_logits(eng)
+    fault_free, reasons, dt_ff, _, _ = rb.drive(eng, prompts, max_new)
+    check(set(reasons) == {"length"}, f"fault-free reasons {reasons}")
+    del eng
+    eng = ContinuousEngine(cfg, params, guard=EngineGuard(config),
+                           **chunked)
+    inj = FaultInjector(canned_plan())
+    eng.attach_faults(inj)
+    _reset_counts()
+    streams, reasons, dt_g, checks, _ = rb.drive(eng, prompts, max_new,
+                                                 check_each_step=True)
+    k1 = _check_k1_bulk("guarded canned plan")
+    k2 = _check_k2_tc("guarded canned plan")
+    m = eng.metrics
+    check(k1 == cfg.n_layers * m.decode_steps and
+          k2 == cfg.n_layers * m.prefill_chunks,
+          f"launches K1 {k1}, K2 {k2}, decode steps {m.decode_steps}, "
+          f"chunks {m.prefill_chunks}")
+    victims = [i for i, r in enumerate(reasons) if r == "quarantined"]
+    corrupted = [e for e in inj.log if e["kind"] == "kv_corrupt" and
+                 "req_id" in e]
+    quarantines = [e for e in inj.log if e["kind"] == "quarantine"]
+    check(len(victims) == 1 and m.quarantined == 1 and len(corrupted) == 1
+          and quarantines[0]["req_id"] == corrupted[0]["req_id"],
+          f"victims {victims}, corrupted {corrupted}, quarantines "
+          f"{quarantines}")
+    v = victims[0]
+    check(quarantines[0]["purged_nodes"] > 0 and
+          eng.prefix_cache.lookup(prompts[v]) == 0,
+          f"victim {v}: {quarantines[0]['purged_nodes']} nodes purged, "
+          f"lookup {eng.prefix_cache.lookup(prompts[v])}")
+    mismatched = [i for i, (s, b) in enumerate(zip(streams, fault_free))
+                  if i != v and s != b]
+    check(not mismatched, f"guarded non-victim streams differ from the "
+                          f"fault-free drive's: {mismatched}")
+    kinds = {e["kind"] for e in inj.log}
+    check(kinds >= set(ENGINE_FAULT_KINDS),
+          f"fault kinds missing from the log: "
+          f"{set(ENGINE_FAULT_KINDS) - kinds}")
+    print(f"{tag} (b) canned plan + guard, chunked-256 bf16: victim "
+          f"{v} (prompt {lens[v]} tokens, corrupted blocks "
+          f"{len(corrupted[0]['blocks'])}, audited logit error "
+          f"{quarantines[0]['logit_error']:.3f} against the bound "
+          f"{config.quarantine_error:.3f}) quarantined, "
+          f"{quarantines[0]['purged_nodes']} tree nodes purged; "
+          f"{len(prompts) - 1}/{len(prompts) - 1} other streams equal the "
+          f"fault-free drive's; invariants after each of {checks} steps, "
+          f"0 leaked blocks; counters "
+          + ", ".join(f"{k} {getattr(m, k)}" for k in (
+              "cancelled", "deadline_misses", "quarantined", "shed",
+              "faults_injected", "transient_retries", "readback_audits"))
+          + f", preemptions {m.preemptions}; launches K1 {k1} (all on "
+          f"the bulk-copy route), K2 {k2} (all on the tensor cores); "
+          f"fault-free {dt_ff:.2f} s, guarded {dt_g:.2f} s; {card}")
+    print(f"{tag} (b) guard transitions {eng.guard.transitions}; fault "
+          f"log kinds {sorted(kinds)}")
+    del eng
+
+    # -- (c) the same storm unguarded --------------------------------------
+    eng = ContinuousEngine(cfg, params, **chunked)
+    inj = FaultInjector(canned_plan())
+    eng.attach_faults(inj)
+    pl_logits = _paged_logits(eng)
+    _reset_counts()
+    plain, _, _, checks, _ = rb.drive(eng, prompts, max_new,
+                                      check_each_step=True)
+    _check_k1_bulk("unguarded canned plan")
+    _check_k2_tc("unguarded canned plan")
+    divergent = [i for i, (s, b) in enumerate(zip(plain, fault_free))
+                 if s != b]
+    (cv,) = inj.corrupted_req_ids()   # fresh engines: id == position
+    # the corrupted request's served logits at each decode step its stream
+    # still agrees with the fault-free run's (the same context), against
+    # the fault-free top-1 margin
+    same = next((t for t, (a, b) in enumerate(zip(plain[cv],
+                                                  fault_free[cv])) if a != b),
+                max_new)
+    deltas, margins = [], []
+    for t in range(1, same):
+        a, b = pl_logits[cv, t][:V].float(), ff_logits[cv, t][:V].float()
+        deltas.append((a - b).abs().max().item())
+        top = torch.topk(b, 2).values
+        margins.append((top[0] - top[1]).item())
+    print(f"{tag} (c) the same storm unguarded: corrupted request "
+          f"{cv}, divergent workload positions {divergent} (first "
+          f"differing token of each at " + ", ".join(
+              str(next(t for t, (a, b) in enumerate(zip(
+                  plain[i], fault_free[i])) if a != b)) for i in divergent)
+          + f"; a stream diverges: {_met(bool(divergent))}, read); the "
+          f"corrupted request's served decode logits against the "
+          f"fault-free run's over its {len(deltas)} agreeing decode steps: "
+          f"max |delta| min/median/max "
+          + (f"{min(deltas):.1f}/{float(np.median(deltas)):.1f}/"
+             f"{max(deltas):.1f}, the fault-free top-1 over top-2 margin "
+             f"min/median {min(margins):.1f}/{float(np.median(margins)):.1f}"
+             if deltas else "none")
+          + f"; invariants after each of {checks} steps")
+    check(divergent or min(deltas) >= config.quarantine_error,
+          f"the unguarded corruption reached neither a stream nor the "
+          f"served logits past the bound {config.quarantine_error:.3f}: "
+          f"{deltas}")
+    del eng
+    torch.cuda.empty_cache()
+
+    # -- (d) resilience_bench at full width, then its CLI -------------------
+    a = rb.parse_args(["--device", "cuda", "--smoke"])
+    bench_prompts = rb.make_workload(a.pairs, V, a.seed)
+    eng = rb.build_engine(cfg, params, max_new=a.max_new, device=dev,
+                          guard=EngineGuard(GuardConfig(**rb.NO_QUARANTINE)))
+    deltas, _ = rb.audit_deltas(eng, bench_prompts, 1)
+    del eng
+    bench_config = rb.guard_config_for(
+        max(clean_max, max(e for _, e in deltas)))
+    print(f"{tag} (d) the bench's {len(bench_prompts)} prompts of "
+          f"{rb.PREFIX_LEN + rb.TAIL_LEN} tokens, clean deltas "
+          f"{_deltas_text(deltas)}; its thresholds: degraded "
+          f"{bench_config.logit_error_degraded:.3f}, quarantine "
+          f"{bench_config.quarantine_error:.3f}")
+    engines = rb.build_engines(cfg, params, max_new=a.max_new, device=dev,
+                               guard_config=bench_config)
+    eng_base, eng_guard, _, eng_plain, inj_plain = engines
+    _reset_counts()
+    ratios, base_toks, tok_b, tok_g = rb.run_rounds(
+        eng_base, eng_guard, bench_prompts, a.max_new, a.repeats)
+    ver = rb.verify(eng_guard, eng_plain, inj_plain, bench_prompts,
+                    a.max_new, base_toks)
+    k1 = _check_k1_bulk("resilience_bench at full width")
+    # the ratio is read here; the unguarded-divergence gate is read too
+    # (at full width the random weights' top-1 margin can exceed what the
+    # corruption moves the logits, (c)); the other two are asserted
+    failures = [f for f in rb.gate_failures(max(ratios), 0.0, ver)
+                if not f.startswith("unguarded drive did not diverge")]
+    best, med = max(ratios), float(np.median(ratios))
+    print(f"{tag} (d) resilience_bench at full width ({a.pairs} pairs, "
+          f"{a.max_new} new tokens, block {rb.BLOCK_SIZE}, "
+          f"{rb.NUM_BLOCKS} blocks, batch {rb.MAX_BATCH}, {a.repeats} "
+          f"rounds, the bench's --smoke count): guarded/fault-free tok/s best-of {best:.3f}, median "
+          f"{med:.3f} (the {a.min_ratio} gate {_met(best >= a.min_ratio)}: "
+          f"read, not gated here), rounds "
+          + ", ".join(f"{r:.3f}" for r in ratios)
+          + f", last round {tok_b:.1f}/{tok_g:.1f} tok/s; victims "
+          f"{ver['victims']}, non-victim mismatches {ver['mismatched']}, "
+          f"unguarded divergent {ver['divergent']} (gate "
+          f"{_met(bool(ver['divergent']))}: read), invariant checks "
+          f"{ver['checks']}; K1 launches {k1} (all on the bulk-copy "
+          f"route); {card}")
+    check(not failures, f"resilience_bench at full width: {failures}")
+    del engines, eng_base, eng_guard, eng_plain, params
+    torch.cuda.empty_cache()
+    _resilience_cli(card)
+    print(f"{tag} phase time {time.perf_counter() - t_phase:.1f} s")
+
+
 def _row(name, src, replaces, launches, per_step, err, ms, plain, nbytes,
          flops, library=None, peak="bfloat16"):
     """One kernel's entry of the ``kernels`` line; ``peak`` names the rate
@@ -3395,6 +3671,7 @@ def main() -> int:
           card_line("clocks.sm,power.draw,temperature.gpu"))
     phase_paper_tables(dev, card)
     phase_telemetry(dev, card)
+    phase_resilience(dev, card)
     for k in kernels:
         k["card"] = card
         lib = "" if k["library_ms"] is None else \

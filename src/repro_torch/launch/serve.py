@@ -23,6 +23,18 @@ numerics monitor; any of these implies ``--telemetry``, which without
         --num-blocks 2048 --kv-dtype int8 --metrics-out metrics.prom \
         --trace-out trace.json --numerics-every 1
 
+Resilience (paged engine): ``--fault-plan PATH|canned`` attaches the fault
+injector (``serve/faults.py``; ``--fault-log`` writes its replay
+artifact), ``--guard`` the degradation ladder with the readback-audit
+quarantine (``serve/guard.py``, the reference's reduced-model thresholds),
+``--deadline-ms``/``--ttft-budget-ms`` cancel overdue requests; a
+``resilience:`` line sums up what happened.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \
+        --reduced --device cpu --batch 2 --prompt-len 20 --max-new 6 \
+        --block-size 8 --num-blocks 24 --fault-plan canned --guard \
+        --deadline-ms 60000
+
 Runs on the CUDA card by default; ``--device cpu`` runs the plain PyTorch
 versions of the kernels instead (with ``--reduced`` for a CPU-sized model).
 Weights are random, drawn from ``--seed``; prompts too. The paged-engine
@@ -39,7 +51,9 @@ import torch
 
 from repro_torch.models.registry import (GRID_ARCHS, get_config,
                                          init_lm_params, reduce_config)
-from repro_torch.serve import (ContinuousEngine, ServeEngine, Telemetry,
+from repro_torch.serve import (ContinuousEngine, EngineGuard,
+                               EngineSheddingError, FaultInjector, FaultPlan,
+                               ServeEngine, Telemetry, canned_plan,
                                check_invariants)
 from repro_torch.utils.device import resolve_device
 
@@ -121,6 +135,32 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "publishing the live logit-error gauge plus "
                          "IntMax-overflow / scale-saturation counters "
                          "(0 = off)")
+    ap.add_argument("--fault-plan", default=None, metavar="PATH|canned",
+                    help="paged engine: attach the fault injector "
+                         "(serve/faults.py) with this plan — a FaultPlan "
+                         "JSON file, or the literal 'canned' for the "
+                         "reference chaos plan. Attached before traffic "
+                         "(no warmup runs here), so the plan's step "
+                         "indices address serving steps")
+    ap.add_argument("--fault-log", default=None, metavar="PATH",
+                    help="write the fault-injection replay artifact "
+                         "(plan + every injection that fired) here")
+    ap.add_argument("--guard", action="store_true",
+                    help="paged engine: enable the graceful-degradation "
+                         "ladder (serve/guard.py) — sheds admissions, "
+                         "shrinks prefill budgets, and quarantines "
+                         "corrupted-KV requests as pool/numerics/queue "
+                         "pressure crosses thresholds; recovers "
+                         "automatically. Its thresholds are the "
+                         "reference's reduced-model defaults")
+    ap.add_argument("--deadline-ms", type=float, default=0.0,
+                    help="paged engine: per-request end-to-end deadline; "
+                         "overdue requests are cancelled (reason "
+                         "'deadline'). 0 = no deadline")
+    ap.add_argument("--ttft-budget-ms", type=float, default=0.0,
+                    help="paged engine: per-request time-to-first-token "
+                         "budget; requests that miss it are cancelled "
+                         "(reason 'deadline'). 0 = no budget")
     return ap.parse_args(argv)
 
 
@@ -160,16 +200,45 @@ def main(argv=None) -> None:
         kv_dtype=None if args.kv_dtype == "auto" else args.kv_dtype,
         kv_tile_blocks=args.kv_tile_blocks,
         decode_split_k=args.decode_split_k, autotune=args.autotune,
-        telemetry=tel, device=device)
+        telemetry=tel, guard=EngineGuard() if args.guard else None,
+        deadline_s=args.deadline_ms / 1e3 or None,
+        ttft_budget_s=args.ttft_budget_ms / 1e3 or None, device=device)
     del params
+    inj = None
+    if args.fault_plan:
+        plan = (canned_plan() if args.fault_plan == "canned"
+                else FaultPlan.load(args.fault_plan))
+        inj = FaultInjector(plan)
+        eng.attach_faults(inj)
+        log.info("fault injector attached: %d specs, seed %d",
+                 len(plan.specs), plan.seed)
     t0 = time.time()
-    handles = [eng.submit(p, args.max_new, temperature=args.temperature)
-               for p in prompts]
+    handles = []
+    for p in prompts:
+        try:
+            handles.append(eng.submit(p, args.max_new,
+                                      temperature=args.temperature))
+        except EngineSheddingError as e:
+            # the guard refused the front door; its hint is the minimum
+            # clean steps before a retry can succeed
+            log.warning("submit shed by guard (%s): retry after >= %d "
+                        "clean engine steps", e, e.retry_after_steps)
     results = eng.run()
     dt = time.time() - t0
     check_invariants(eng.pool, eng.prefix_cache)
-    rows = [results[h.req_id].tokens for h in handles]
+    rows = [results[h.req_id].tokens for h in handles
+            if h.req_id in results]
     m = eng.metrics
+    if inj is not None or args.guard or args.deadline_ms or \
+            args.ttft_budget_ms:
+        log.info("resilience: %d faults injected, %d retries, %d cancelled "
+                 "(%d deadline, %d quarantined), %d shed, guard=%s",
+                 m.faults_injected, m.transient_retries, m.cancelled,
+                 m.deadline_misses, m.quarantined, m.shed,
+                 eng.guard.state if eng.guard else "off")
+    if inj is not None and args.fault_log:
+        inj.save_log(args.fault_log)
+        log.info("fault replay artifact -> %s", args.fault_log)
     log.info("kv pool[%s]: %d-token capacity in %.2f MiB (%d blocks x %d)",
              eng.pool.kv_dtype, eng.pool.token_capacity,
              eng.pool.hbm_bytes / 2 ** 20, args.num_blocks, args.block_size)

@@ -29,6 +29,14 @@ the engine's clock (the telemetry's unless ``clock`` is given) and is a
 host dispatch time: no hook waits for the device, except the numerics
 probe, which reads its audit's result.
 
+The resilience layer: ``faults=FaultInjector(...)`` (``serve/faults.py``)
+injects the plan's faults step by step, ``guard=EngineGuard(...)``
+(``serve/guard.py``) drives the degradation ladder and the readback-audit
+quarantine, ``deadline_s``/``ttft_budget_s`` cancel overdue requests,
+``cancel()`` ends a request mid-prefill or mid-decode, and transient
+faults are retried with bounded backoff. The one device read the layer
+adds is the readback audit's max logit delta.
+
 Both engines run on the CUDA card unless ``device`` names another device;
 without a card the default raises. Both cast the matrix weights to the
 compute dtype once at load (the same numbers the per-use casts give).
@@ -56,6 +64,9 @@ from repro_torch.models.registry import model_fns
 from repro_torch.models.schema import tree_map, unstack_layers
 from repro_torch.serve.autotune import (AUTOTUNE_MODES, GridPlanner,
                                        default_candidates)
+from repro_torch.serve.faults import FAULT_REQ, FaultInjector, TransientFault
+from repro_torch.serve.guard import (EngineGuard, EngineSheddingError,
+                                     GuardSignals)
 from repro_torch.serve.kernel_costs import (decode_launch_cost,
                                             prefill_launch_cost)
 from repro_torch.serve.kv_pool import PagedKVCache, PoolStats
@@ -67,7 +78,9 @@ from repro_torch.serve.paged_step import (check_paged_support,
                                           scatter_prefill_offset,
                                           table_width_bucket)
 from repro_torch.serve.radix_cache import CacheStats, RadixCache
-from repro_torch.serve.scheduler import PREFILL, Request, Scheduler
+from repro_torch.serve.scheduler import (FINISH_CANCELLED, FINISH_DEADLINE,
+                                         FINISH_QUARANTINED, PREFILL, Request,
+                                         Scheduler)
 from repro_torch.serve.telemetry import Telemetry
 from repro_torch.utils.device import resolve_device
 
@@ -166,6 +179,14 @@ class EngineMetrics:
     cache_evictions: int = 0     # blocks evicted from the tree
     cow_copies: int = 0          # partial tail blocks copied on write
     shared_blocks_peak: int = 0  # peak blocks referenced by >1 owner
+    # resilience counters (zero when faults/guard/deadlines are off)
+    cancelled: int = 0           # client cancellations honored
+    deadline_misses: int = 0     # requests cancelled on deadline/TTFT breach
+    quarantined: int = 0         # requests cancelled by the readback audit
+    shed: int = 0                # submissions refused while SHEDDING
+    faults_injected: int = 0     # injector firings (mirror of the log)
+    transient_retries: int = 0   # TransientFaults absorbed by retry
+    readback_audits: int = 0     # scatter-readback integrity audits run
 
     @property
     def tok_per_s(self) -> float:
@@ -196,6 +217,12 @@ class ContinuousEngine:
                  autotune: str = "off", autotune_candidates=None,
                  telemetry: Optional[Telemetry] = None,
                  clock: Optional[Callable[[], float]] = None,
+                 faults: Optional[FaultInjector] = None,
+                 guard: Optional[EngineGuard] = None,
+                 deadline_s: Optional[float] = None,
+                 ttft_budget_s: Optional[float] = None,
+                 step_fault_retries: int = 3,
+                 retry_backoff_s: float = 0.005,
                  device=None):
         check_paged_support(cfg)
         self.cfg = cfg
@@ -243,6 +270,25 @@ class ContinuousEngine:
         self.sched = Scheduler(self.pool, max_batch, max_len,
                                cache=self.prefix_cache, clock=self._clock)
         self.nb_max = -(-max_len // block_size)
+        # resilience layer (serve/faults.py, serve/guard.py): nullable hooks
+        # as the telemetry. The engine's deadline defaults apply to every
+        # submit() without its own; TransientFaults are absorbed by bounded
+        # exponential retry (step_fault_retries attempts from a
+        # retry_backoff_s delay, slept through ManualClock.advance when the
+        # clock has it, so fault tests stay deterministic)
+        self.guard = guard
+        self.default_deadline_s = deadline_s
+        self.default_ttft_budget_s = ttft_budget_s
+        if step_fault_retries < 0 or retry_backoff_s < 0:
+            raise ValueError("step_fault_retries and retry_backoff_s "
+                             "must be >= 0")
+        self.step_fault_retries = step_fault_retries
+        self.retry_backoff_s = retry_backoff_s
+        self.faults: Optional[FaultInjector] = None
+        self._fault_pressure_blocks = 0   # blocks held under FAULT_REQ
+        self._step_logit_err = 0.0        # max audited error this step
+        if faults is not None:
+            self.attach_faults(faults)
         # kernel grid autotuning (serve/autotune.py): "static" ranks the
         # candidate grids once, here, on the worst-case batch (every row at
         # max_len) and rebinds the knobs; "per-step" re-ranks them from
@@ -277,13 +323,64 @@ class ContinuousEngine:
 
     def submit(self, prompt: np.ndarray, max_new: int,
                temperature: float = 0.0,
-               req_id: Optional[int] = None) -> Request:
-        """Enqueue one request; returns its (streaming) Request handle."""
-        req = self.sched.submit(np.asarray(prompt, np.int32), max_new,
-                                temperature, req_id)
+               req_id: Optional[int] = None,
+               deadline_s: Optional[float] = None,
+               ttft_budget_s: Optional[float] = None,
+               t_submit: Optional[float] = None,
+               ttft_observed: bool = False) -> Request:
+        """Enqueue one request; returns its (streaming) Request handle.
+        ``deadline_s``/``ttft_budget_s`` override the engine defaults
+        (None = the engine's; the engine cancels on breach). While the
+        guard is SHEDDING this raises ``EngineSheddingError``, the
+        degradation ladder's front door (counted in
+        ``requests_shed_total``), with the guard's ``retry_after_steps``
+        hint. ``t_submit``/``ttft_observed`` are the fleet-failover
+        migration stamps (see ``Scheduler.submit``)."""
+        if self.guard is not None and not self.guard.submit_allowed():
+            self.metrics.shed += 1
+            if self.telemetry is not None:
+                self.telemetry.on_shed()
+            hint = self.guard.retry_after_steps()
+            raise EngineSheddingError(
+                "engine is shedding load (guard state: "
+                f"{self.guard.state}; reason: {self.guard.last_reason}) — "
+                f"retry after >= {hint} clean steps",
+                retry_after_steps=hint)
+        req = self.sched.submit(
+            np.asarray(prompt, np.int32), max_new, temperature, req_id,
+            deadline_s=(deadline_s if deadline_s is not None
+                        else self.default_deadline_s),
+            ttft_budget_s=(ttft_budget_s if ttft_budget_s is not None
+                           else self.default_ttft_budget_s),
+            t_submit=t_submit, ttft_observed=ttft_observed)
         if self.telemetry is not None:
             self.telemetry.on_submit(req)
         return req
+
+    def cancel(self, req_id: int, reason: str = FINISH_CANCELLED) -> bool:
+        """Client cancellation: end a queued or running request, freeing its
+        blocks and radix pins mid-prefill or mid-decode. Safe against the
+        async pipeline (the epoch bump makes any in-flight token vector
+        stale for it). Idempotent: False when the id is not queued or
+        running."""
+        req = self.sched.cancel(req_id, reason)
+        if req is None:
+            return False
+        self._sync_rows()
+        self.metrics.cancelled += 1
+        if reason == FINISH_DEADLINE:
+            self.metrics.deadline_misses += 1
+        if self.telemetry is not None:
+            self.telemetry.on_cancel(req, reason)
+        return True
+
+    def attach_faults(self, faults: Optional[FaultInjector]) -> None:
+        """Thread the fault injector through engine, scheduler and pool (one
+        nullable hook each). Attach AFTER ``warmup()``: warmup's synthetic
+        steps would otherwise consume the plan's step indices."""
+        self.faults = faults
+        self.sched.faults = faults
+        self.pool.faults = faults
 
     def warmup(self) -> None:
         """Build the kernels and take the first launches out of serving
@@ -312,6 +409,11 @@ class ContinuousEngine:
         self._vec = torch.zeros((self.max_batch,), dtype=torch.int32,
                                 device=self.device)
         self._pending.clear()
+        self._release_pool_pressure()    # injector-held blocks go back
+        if self.faults is not None:
+            self.faults.reset()
+        if self.guard is not None:
+            self.guard.reset()
         self.sched.finished.clear()
         self.sched.n_preemptions = 0
         self.sched.tokens_discarded = 0
@@ -331,20 +433,29 @@ class ContinuousEngine:
         step on which a request finishes drains the pipeline (the finished
         request's generated tokens are published to the tree)."""
         tel = self.telemetry
+        inj = self.faults
         t0 = self._clock()
         events: Dict[int, List[int]] = {}
-        # the reference reads the clock here to enforce deadlines, even
-        # when none is set; deadlines come with the resilience slice
-        # (ROADMAP.md Queue 1 item 2) — the read keeps the stamps' order
-        self._clock()
+        self._step_logit_err = 0.0
+        if inj is not None:
+            inj.begin_step(self.metrics.steps, telemetry=tel)
+            self._apply_fault_front(inj, tel)
+        self._enforce_deadlines()
         self._sync_rows()
-        admitted = self.sched.admit(self.max_admit_per_step)
+
+        max_admit: Optional[int] = self.max_admit_per_step
+        budget = self.prefill_budget
+        if self.guard is not None:
+            max_admit = self.guard.effective_max_admit(
+                max_admit if max_admit is not None else self.max_batch)
+            budget = self.guard.effective_prefill_budget(budget)
+        admitted = self.sched.admit(max_admit)
         if tel is not None:
             for req in admitted:
                 tel.on_admit(req)
         if self.prefill_chunk:
             for req in self.sched.chunk_schedule(self.prefill_chunk,
-                                                 self.prefill_budget):
+                                                 budget):
                 self._do_prefill_chunk(req, events)
         else:
             for req in admitted:
@@ -353,7 +464,7 @@ class ContinuousEngine:
         self._evict_finished(tel)                  # max_new == 1 requests
 
         before_discard = self.sched.tokens_discarded
-        preempted = self.sched.ensure_decode_blocks()
+        preempted = self._with_retry(self.sched.ensure_decode_blocks)
         self.metrics.preemptions += len(preempted)
         self.metrics.tokens_discarded += \
             self.sched.tokens_discarded - before_discard
@@ -367,6 +478,8 @@ class ContinuousEngine:
             self._evict_finished(tel)
 
         self.metrics.steps += 1
+        if inj is not None:
+            self.metrics.faults_injected = inj.faults_injected
         dt = self._clock() - t0
         self.metrics.wall_s += dt
         self.metrics.peak_blocks = self.pool.stats.peak_in_use
@@ -374,6 +487,8 @@ class ContinuousEngine:
         self.metrics.cow_copies = self.pool.stats.cow_copies
         if self.prefix_cache is not None:
             self.metrics.cache_evictions = self.prefix_cache.stats.evictions
+        if self.guard is not None:
+            self._observe_guard(dt, tel)
         if tel is not None:
             tel.on_step_end(self, t0, dt)
         return events
@@ -382,6 +497,196 @@ class ContinuousEngine:
         for req in self.sched.evict_finished():
             if tel is not None:
                 tel.on_finish(req)
+
+    def _sync_rows(self) -> None:
+        """Vacate rows whose request left the running set (finished,
+        preempted or cancelled); the row idles as a zombie until
+        reassigned."""
+        live = {id(r) for r in self.sched.running}
+        for i, r in enumerate(self._rows):
+            if r is not None and id(r) not in live:
+                self._rows[i] = None
+
+    # -- resilience internals (faults / guard / deadlines) ----------------
+
+    def _sleep(self, dt: float) -> None:
+        """Clock-aware sleep: a ManualClock advances (deterministic tests),
+        a real clock sleeps for real (an injected stall costs wall time)."""
+        if dt <= 0:
+            return
+        adv = getattr(self._clock, "advance", None)
+        if adv is not None:
+            adv(dt)
+        else:
+            time.sleep(dt)
+
+    def _with_retry(self, fn):
+        """Bounded retry-with-backoff around a step phase that can raise
+        ``TransientFault``. The wrapped phases are idempotent
+        (``ensure_decode_blocks`` skips requests whose table already grew),
+        so re-entry after a partial pass is safe."""
+        delay = self.retry_backoff_s
+        for attempt in range(self.step_fault_retries + 1):
+            try:
+                return fn()
+            except TransientFault:
+                if attempt >= self.step_fault_retries:
+                    raise
+                self.metrics.transient_retries += 1
+                if self.telemetry is not None:
+                    self.telemetry.on_retry()
+                self._sleep(delay)
+                delay *= 2
+
+    def _apply_fault_front(self, inj: FaultInjector, tel) -> None:
+        """The injections that hit at the top of a step: pool pressure,
+        stalls, preemption storms, and the step-level transient fault."""
+        # pool pressure: steal free blocks under the FAULT_REQ sentinel so
+        # admission back-off, cache eviction and preemption feel REAL
+        # scarcity through their normal paths; released when the window
+        # closes (target 0)
+        want = inj.pool_pressure_target(self.pool.num_blocks)
+        if want > self._fault_pressure_blocks:
+            take = min(want - self._fault_pressure_blocks,
+                       self.pool.num_free)
+            if take > 0:
+                self.pool.alloc(FAULT_REQ, take)
+                self._fault_pressure_blocks += take
+        elif want == 0:
+            self._release_pool_pressure()
+        stall = inj.stall_seconds()
+        if stall > 0:
+            self._sleep(stall)
+        n_storm = inj.preempt_storm_count()
+        if n_storm:
+            before_discard = self.sched.tokens_discarded
+            victims = self.sched.force_preempt(n_storm)
+            self.metrics.preemptions += len(victims)
+            self.metrics.tokens_discarded += \
+                self.sched.tokens_discarded - before_discard
+            if victims:
+                inj.record("preempt_storm_victims", step=inj.step_idx,
+                           req_ids=[v.req_id for v in victims])
+            if tel is not None:
+                for v in victims:
+                    tel.on_preempt(v)
+        self._with_retry(inj.check_step_fault)
+
+    def _release_pool_pressure(self) -> None:
+        if self._fault_pressure_blocks > 0:
+            self.pool.free(FAULT_REQ)
+            self._fault_pressure_blocks = 0
+
+    def _enforce_deadlines(self) -> None:
+        """Cancel queued/running requests past their deadline or TTFT
+        budget (reason "deadline"; counted in deadline_misses_total)."""
+        now = self._clock()
+        overdue = [r for r in
+                   list(self.sched.waiting) + list(self.sched.running)
+                   if (r.deadline_s is not None and
+                       now - r.t_submit >= r.deadline_s) or
+                      (r.ttft_budget_s is not None and
+                       r.t_first_token == 0.0 and
+                       now - r.t_submit >= r.ttft_budget_s)]
+        for req in overdue:
+            self.cancel(req.req_id, FINISH_DEADLINE)
+
+    def _observe_guard(self, dt: float, tel) -> None:
+        """Assemble this step's ``GuardSignals`` from the live surfaces and
+        advance the degradation ladder."""
+        now = self._clock()
+        waiting = self.sched.waiting
+        queue_wait = max((now - r.t_submit for r in waiting), default=0.0)
+        spike = self.faults.numerics_spike() if self.faults is not None \
+            else 0.0
+        err = max(self._step_logit_err, spike)
+        if tel is not None and err > 0:
+            tel.registry.gauge(
+                "numerics_logit_error",
+                "latest probe's max |full - int8| logit delta").set(err)
+        sig = GuardSignals(pool_util=self.pool.utilization,
+                           logit_error=err,
+                           queue_wait=queue_wait,
+                           queue_depth=len(waiting),
+                           step_seconds=dt)
+        change = self.guard.observe(sig, step=self.metrics.steps)
+        if change is not None and tel is not None:
+            tel.on_guard(*change, step=self.metrics.steps)
+        elif tel is not None:
+            tel.g_guard_state.set(float(self.guard.level))
+
+    def _quarantine(self, req: Request, err: float) -> None:
+        """The audited logit error of ``req``'s freshly written KV exceeded
+        the quarantine bound: purge every tree node its blocks back (no
+        later prefix hit serves poisoned KV) and cancel the request. Runs
+        right after join, before any decode step used the bad state."""
+        if self.prefix_cache is not None:
+            purged = self.prefix_cache.purge(req.req_id)
+        else:
+            purged = 0
+        self.metrics.quarantined += 1
+        if self.faults is not None:
+            self.faults.record("quarantine", step=self.faults.step_idx,
+                               req_id=req.req_id, logit_error=err,
+                               purged_nodes=purged)
+        self.cancel(req.req_id, FINISH_QUARANTINED)
+
+    def _corrupt_request_blocks(self, req: Request) -> None:
+        """kv_corrupt landing site: sign-flip every block ONLY this request
+        owns (refcount 1 — shared prefix blocks belong to other owners and
+        the tree; the fault models a bad write of THIS request's fresh
+        rows)."""
+        blocks = [b for b in self.pool.blocks_of(req.req_id)
+                  if self.pool.refcount(b) == 1]
+        for b in blocks:
+            self.pool.corrupt_block(b)
+        self.faults.record("kv_corrupt", step=self.faults.step_idx,
+                           req_id=req.req_id, blocks=blocks)
+        if self.telemetry is not None:
+            self.telemetry.on_fault("kv_corrupt_hit", self.faults.step_idx,
+                                    req_id=req.req_id)
+
+    def _readback_audit(self, req: Request, lg: torch.Tensor) -> float:
+        """Scatter-readback KV-integrity audit: recompute the final prompt
+        token's logits READING the just-written blocks out of the pool (a
+        1-token suffix prefill through ``paged_prefill_suffix``: a gather
+        plus a dense Softermax, no kernel) and compare them with the
+        prefill's own final logits. A clean pool agrees to within rounding
+        (and int8 error); corrupted blocks give a large delta. Returns the
+        max-abs logit delta (0.0 when the prompt is too short to audit);
+        its one host read is the layer's only device sync."""
+        m = req.prompt_len - 1
+        if m < 1:
+            return 0.0
+        bs = self.block_size
+        tokens = np.zeros((1, bs), np.int32)
+        tokens[0, 0] = req.prompt[m]
+        table = np.asarray(self.pool.blocks_of(req.req_id), np.int32)
+        nb_p = -(-m // bs)
+        pt = np.zeros((1, self._pow2_bucket(nb_p)), np.int32)
+        pt[0, :nb_p] = table[:nb_p]
+        # readback only: the recomputed K/V rows are not written
+        lg2, _, _ = paged_prefill_suffix(
+            self.params, self._tensor(tokens), m, self._tensor([0]),
+            self.pool.k, self.pool.v, self._tensor(pt), self._tensor([m]),
+            self.cfg, **self._scales())
+        V = self.cfg.vocab_size
+        err = float(torch.max(torch.abs(lg2[:, :V] - lg[:, :V])))
+        self.metrics.readback_audits += 1
+        self._step_logit_err = max(self._step_logit_err, err)
+        if self.telemetry is not None:
+            self.telemetry.on_readback(req, err)
+        return err
+
+    def _audit_and_quarantine(self, req: Request, lg: torch.Tensor) -> None:
+        """Post-join integrity pass: the readback audit when the guard asks
+        for it, quarantine on a bound breach."""
+        g = self.guard
+        if g is None or not g.config.readback_audit:
+            return
+        err = self._readback_audit(req, lg)
+        if g.should_quarantine(err):
+            self._quarantine(req, err)
 
     def drain(self) -> Dict[int, List[int]]:
         """Materialize every in-flight sampled-token vector into its
@@ -435,14 +740,6 @@ class ContinuousEngine:
         return EngineMetrics(kv_dtype=self.pool.kv_dtype,
                              pool_token_capacity=self.pool.token_capacity,
                              kv_pool_bytes=self.pool.hbm_bytes)
-
-    def _sync_rows(self) -> None:
-        """Vacate rows whose request left the running set (finished or
-        preempted); the row idles as a zombie until reassigned."""
-        live = {id(r) for r in self.sched.running}
-        for i, r in enumerate(self._rows):
-            if r is not None and id(r) not in live:
-                self._rows[i] = None
 
     def _scales(self):
         return {"k_scale": self.pool.k_scale, "v_scale": self.pool.v_scale}
@@ -531,9 +828,21 @@ class ContinuousEngine:
                            plen - m,
                            self._pow2_bucket(-(-plen // self.block_size)),
                            t, self._clock() - t)
+        if self.faults is not None and self.faults.take_kv_corrupt():
+            self._corrupt_request_blocks(req)      # bad write, post hoc
         self._join_decode(req, lg, events)
-        if tel is not None:
-            tel.maybe_numerics_probe(self, req)
+        self._probe_numerics(req)
+        self._audit_and_quarantine(req, lg)
+
+    def _probe_numerics(self, req: Request) -> None:
+        """The telemetry's numerics probe after a join; its logit error
+        feeds the guard's signal."""
+        if self.telemetry is not None:
+            probe = self.telemetry.maybe_numerics_probe(self, req)
+            if probe:
+                self._step_logit_err = max(
+                    self._step_logit_err,
+                    float(probe.get("logit_error", 0.0)))
 
     def _do_prefill_chunk(self, req: Request,
                           events: Dict[int, List[int]]) -> None:
@@ -581,9 +890,11 @@ class ContinuousEngine:
                            self._clock() - t, cost=cost,
                            launches=self.cfg.n_layers)
         if req.n_prefilled == req.prompt_len:
+            if self.faults is not None and self.faults.take_kv_corrupt():
+                self._corrupt_request_blocks(req)  # bad write, post hoc
             self._join_decode(req, lg, events)
-            if tel is not None:
-                tel.maybe_numerics_probe(self, req)
+            self._probe_numerics(req)
+            self._audit_and_quarantine(req, lg)
         elif self.prefix_cache is not None:
             # publish completed chunks as they land, so a request admitted
             # while this prompt is still mid-prefill gets the longest hit

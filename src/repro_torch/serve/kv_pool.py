@@ -96,6 +96,10 @@ class PagedKVCache:
         self._tables: Dict[int, List[int]] = {}
         self._ref = np.zeros(num_blocks + 1, np.int32)   # [0] unused
         self.stats = PoolStats(num_blocks)
+        # nullable fault-injection hook (serve/faults.py): may raise
+        # TransientFault from append_block — BEFORE any state mutates, so
+        # the engine's bounded retry re-enters a clean pool
+        self.faults = None
 
     # -- storage sizing ---------------------------------------------------
 
@@ -215,6 +219,8 @@ class PagedKVCache:
 
     def append_block(self, req_id: int) -> int:
         """Grow a request's table by one block (decode crossed a boundary)."""
+        if self.faults is not None:
+            self.faults.on_append_block(req_id)   # may raise TransientFault
         (b,) = self._take_fresh(1)
         self._tables[req_id].append(b)
         return b
@@ -243,6 +249,19 @@ class PagedKVCache:
         for t in self.pools:
             t[:, dst].copy_(t[:, src])
         self.stats.cow_copies += 1
+
+    def corrupt_block(self, b: int) -> None:
+        """Fault injection only: silently corrupt one physical block's K/V
+        payload in place (sign-flip every row, all layers) — the model the
+        kv_corrupt fault uses for a bad DMA/scatter. Metadata (refcounts,
+        tables, scales) is untouched: the corruption is invisible to every
+        bookkeeping check and only detectable by reading the data back,
+        which is what the guard's readback audit does. An int8 code of
+        -128 wraps to itself, as in the JAX package."""
+        if b == 0:
+            raise ValueError("refusing to corrupt the garbage block")
+        self.k[:, b].neg_()
+        self.v[:, b].neg_()
 
     # -- views ------------------------------------------------------------
 

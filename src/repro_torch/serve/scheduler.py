@@ -52,6 +52,16 @@ if TYPE_CHECKING:   # import cycle: radix_cache uses kv_pool
 QUEUED, PREFILL, DECODING, FINISHED = "queued", "prefill", "decoding", \
     "finished"
 
+# terminal reasons a request can leave the engine with (Request.finish_reason)
+FINISH_LENGTH = "length"              # generated max_new tokens (normal)
+FINISH_CANCELLED = "cancelled"        # client called engine.cancel()
+FINISH_DEADLINE = "deadline"          # per-request deadline / TTFT budget
+FINISH_QUARANTINED = "quarantined"    # audited logit error over the bound
+FINISH_FAILOVER = "failover"          # revoked from a hung replica after
+#                                       its requests were re-placed on a
+#                                       survivor (fleet-internal: never a
+#                                       client-visible terminal state)
+
 
 class SubmitError(ValueError):
     """A request was rejected at submission. Subclasses name the reason;
@@ -99,6 +109,18 @@ class Request:
     t_first_token: float = 0.0       # dispatch of the first token
     t_last_token: float = 0.0        # latest decode-token dispatch (TPOT)
     t_finish: float = 0.0
+    # why the request reached FINISHED, and its optional per-request latency
+    # budgets (seconds from t_submit; the engine cancels on breach and
+    # counts deadline_misses_total)
+    finish_reason: str = ""          # FINISH_* once state == FINISHED
+    deadline_s: Optional[float] = None       # whole-request deadline
+    ttft_budget_s: Optional[float] = None    # first-token deadline
+    # fleet migration: a request re-placed on a survivor replica arrives
+    # with its ORIGINAL submit stamp (deadlines and E2E keep measuring from
+    # the client's submit) and with ttft_observed=True when its first token
+    # already streamed from the dead replica (telemetry must not observe a
+    # second TTFT sample)
+    ttft_observed: bool = False
 
     @property
     def prompt_len(self) -> int:
@@ -141,6 +163,9 @@ class Scheduler:
         self.n_preemptions = 0
         self.tokens_discarded = 0     # generated tokens thrown away by
         #                               preemption (recomputed on readmit)
+        # nullable fault-injection hook (serve/faults.py), as the engine's
+        # telemetry: None keeps admit() at one extra check
+        self.faults = None
 
     def _outstanding(self) -> int:
         return sum(self._reserved.values())
@@ -149,10 +174,18 @@ class Scheduler:
 
     def submit(self, prompt: np.ndarray, max_new: int,
                temperature: float = 0.0,
-               req_id: Optional[int] = None) -> Request:
+               req_id: Optional[int] = None,
+               deadline_s: Optional[float] = None,
+               ttft_budget_s: Optional[float] = None,
+               t_submit: Optional[float] = None,
+               ttft_observed: bool = False) -> Request:
         """Validate + enqueue. Rejections raise typed ``SubmitError``
         subclasses (all ``ValueError``s) at the front door instead of
-        failing late and untyped deep in admission."""
+        failing late and untyped deep in admission. ``t_submit`` overrides
+        the submit stamp (fleet failover: the survivor measures deadlines
+        and E2E from the client's original submit, not the re-placement);
+        ``ttft_observed`` marks the fleet-wide first token as already
+        delivered (telemetry skips the TTFT sample)."""
         rid = req_id if req_id is not None else self._next_id
         if isinstance(rid, int):
             self._next_id = max(self._next_id, rid + 1)  # no auto collision
@@ -179,8 +212,16 @@ class Scheduler:
                 f"({prompt.shape[0] + max_new - 1} cached tokens) but the "
                 f"pool holds {self.pool.num_blocks} blocks "
                 f"({self.pool.token_capacity} tokens) — raise num_blocks")
+        if deadline_s is not None and deadline_s <= 0:
+            raise SubmitError(f"request {rid}: deadline_s must be > 0")
+        if ttft_budget_s is not None and ttft_budget_s <= 0:
+            raise SubmitError(f"request {rid}: ttft_budget_s must be > 0")
         req = Request(rid, np.asarray(prompt, np.int32), max_new,
-                      temperature, t_submit=self._clock())
+                      temperature,
+                      t_submit=(t_submit if t_submit is not None
+                                else self._clock()),
+                      deadline_s=deadline_s, ttft_budget_s=ttft_budget_s,
+                      ttft_observed=ttft_observed)
         self.waiting.append(req)
         return req
 
@@ -200,6 +241,8 @@ class Scheduler:
         With a prefix cache, a request is charged only for the blocks its
         matched prefix does NOT cover, and cache-evictable blocks count as
         free (``admit`` evicts them on the spot)."""
+        if self.faults is not None and self.faults.admission_stalled():
+            return []                # injected admission stall: admit later
         admitted: List[Request] = []
         while self.waiting and len(self.running) < self.max_batch and \
                 (max_n is None or len(admitted) < max_n):
@@ -358,6 +401,51 @@ class Scheduler:
         self.n_preemptions += 1
         self.waiting.appendleft(req)
 
+    def force_preempt(self, n: int) -> List[Request]:
+        """Preempt the ``n`` youngest decoding requests regardless of pool
+        pressure (fault injection's preemption storm; exercises exactly the
+        organic preemption path)."""
+        out: List[Request] = []
+        for _ in range(n):
+            victims = [r for r in self.running if r.state == DECODING]
+            if not victims:
+                break
+            self._preempt(victims[-1])
+            out.append(victims[-1])
+        return out
+
+    # -- cancellation -----------------------------------------------------
+
+    def cancel(self, req_id: int,
+               reason: str = FINISH_CANCELLED) -> Optional[Request]:
+        """Terminate a queued or running request: release its blocks and
+        radix pins, drop its reservation, and move it to ``finished`` with
+        ``finish_reason=reason``. The epoch bump makes any in-flight
+        sampled-token vector for it stale (the engine's drain discards by
+        epoch), so cancellation is safe mid-prefill and mid-decode.
+        Returns the request, or None when the id is not queued/running
+        (already finished, or unknown) — cancel is idempotent."""
+        for req in self.waiting:
+            if req.req_id == req_id:
+                self.waiting.remove(req)
+                self._finish_with(req, reason)
+                return req
+        for req in self.running:
+            if req.req_id == req_id:
+                self._release(req)
+                self._reserved.pop(req.req_id, None)
+                self.running.remove(req)
+                req.epoch += 1           # stale pending vectors discarded
+                self._finish_with(req, reason)
+                return req
+        return None
+
+    def _finish_with(self, req: Request, reason: str) -> None:
+        req.state = FINISHED
+        req.finish_reason = reason
+        req.t_finish = self._clock()
+        self.finished[req.req_id] = req
+
     # -- completion -------------------------------------------------------
 
     def evict_finished(self) -> List[Request]:
@@ -367,9 +455,7 @@ class Scheduler:
             self._release(req)
             self._reserved.pop(req.req_id, None)
             self.running.remove(req)
-            req.state = FINISHED
-            req.t_finish = self._clock()
-            self.finished[req.req_id] = req
+            self._finish_with(req, FINISH_LENGTH)
         return done
 
     def _publish_generated(self, req: Request) -> None:

@@ -52,13 +52,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.serve.guard import GUARD_STATES
 from repro_torch.serve.metrics import MetricRegistry
 from repro_torch.serve.paged_step import paged_prefill_audit
-
-# the degradation ladder's levels (``guard_state`` gauge: the index), as
-# the reference's serve/guard.py names them; the guard itself comes with
-# the resilience slice (ROADMAP.md Queue 1 item 2)
-GUARD_STATES = ("healthy", "degraded", "shedding")
 
 Clock = Callable[[], float]
 

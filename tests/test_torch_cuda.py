@@ -977,3 +977,70 @@ def test_single_decode_bulk_route_matches_plain_and_k1(cuda_device, kv, G,
         k1 = flash_decode_paged(q, kp, vp, bt, ln, k_scale=ks, v_scale=vs,
                                 kv_tile_blocks=4, split_k=2)
         assert parity_error(got, k1)[1] <= tolerance(q.dtype)
+
+
+def _resilience_drive(eng, prompts, max_new, check=False):
+    """One serve; streams and finish reasons by workload position, the
+    pool invariants after every step when ``check``."""
+    from repro_torch.serve import check_invariants, leaked_blocks
+    handles = [eng.submit(p, max_new) for p in prompts]
+    while eng.sched.has_work():
+        eng.step()
+        if check:
+            check_invariants(eng.pool, eng.prefix_cache)
+    done = eng.run()
+    assert leaked_blocks(eng.pool, eng.prefix_cache) == 0
+    return ([list(done[h.req_id].tokens) for h in handles],
+            [done[h.req_id].finish_reason for h in handles])
+
+
+@pytest.mark.parametrize("kv", ["auto", "int8"], ids=["bf16", "int8"])
+def test_guarded_canned_plan_on_the_card(cuda_device, kv):
+    """Reduced llama3.2-3b in bfloat16, chunked-16 prefill, a bf16 or int8
+    pool: the guard's thresholds from a clean audit drive
+    (``resilience_bench.guard_config_for``), then the canned plan with the
+    guard: the kv_corrupt victim quarantined, every other greedy stream
+    equal to the fault-free drive's, the invariants after every step; K1
+    on the bulk-copy route, K2 on the tensor cores (bf16 pool) or the
+    CUDA-core kernel (int8 pool), n_layers launches a decode step and a
+    chunk."""
+    from repro_torch.benchmarks import resilience_bench as rb
+    from repro_torch.models.registry import (get_config, init_lm_params,
+                                             reduce_config)
+    from repro_torch.serve import (ContinuousEngine, EngineGuard,
+                                   FaultInjector, GuardConfig, canned_plan)
+    cfg = reduce_config(get_config("llama3.2-3b")).replace(
+        compute_dtype="bfloat16")
+    params = init_lm_params(cfg, torch.Generator().manual_seed(0))
+    prompts = rb.make_workload(4, cfg.vocab_size, 0)
+    kw = dict(block_size=8, num_blocks=80, max_batch=6, max_len=40,
+              prefill_chunk=16, kv_dtype=None if kv == "auto" else kv,
+              retry_backoff_s=0.002, device=cuda_device)
+    base, _ = _resilience_drive(ContinuousEngine(cfg, params, **kw),
+                                prompts, 24)
+    clean = ContinuousEngine(cfg, params, guard=EngineGuard(GuardConfig(
+        **rb.NO_QUARANTINE)), **kw)
+    deltas, clean_streams = rb.audit_deltas(clean, prompts, 24)
+    assert clean_streams == base and len(deltas) == len(prompts)
+    config = rb.guard_config_for(max(e for _, e in deltas))
+    eng = ContinuousEngine(cfg, params, guard=EngineGuard(config), **kw)
+    inj = FaultInjector(canned_plan())
+    eng.attach_faults(inj)
+    k1 = (flash_decode_paged.launches, flash_decode_paged.launches_bulk)
+    k2 = (flash_prefill_paged.launches, flash_prefill_paged.launches_tc)
+    streams, reasons = _resilience_drive(eng, prompts, 24, check=True)
+    torch.cuda.synchronize()
+    victims = [i for i, r in enumerate(reasons) if r == "quarantined"]
+    assert len(victims) == 1 and eng.metrics.quarantined == 1
+    assert all(s == b for i, (s, b) in enumerate(zip(streams, base))
+               if i not in victims)
+    assert {e["kind"] for e in inj.log} >= set(
+        s.kind for s in canned_plan().specs)
+    m = eng.metrics
+    n1 = flash_decode_paged.launches - k1[0]
+    n2 = flash_prefill_paged.launches - k2[0]
+    assert n1 == cfg.n_layers * m.decode_steps > 0
+    assert n2 == cfg.n_layers * m.prefill_chunks > 0
+    assert flash_decode_paged.launches_bulk - k1[1] == n1
+    assert flash_prefill_paged.launches_tc - k2[1] == \
+        (n2 if kv == "auto" else 0)
