@@ -35,6 +35,21 @@ quarantine (``serve/guard.py``, the reference's reduced-model thresholds),
         --block-size 8 --num-blocks 24 --fault-plan canned --guard \
         --deadline-ms 60000
 
+Fleet and durability (paged engine): ``--replicas N`` serves through a
+``FleetSupervisor`` over N replicas sharing one copy of the weights
+(``--router affinity|round-robin``, step-watchdog supervision, journaled
+failover; ``--fleet-fault-plan PATH|canned`` the replica crash and hang
+plan); ``--journal-out`` writes the write-ahead journal (``--journal-fsync``
+its policy); ``--snapshot-dir``/``--snapshot-every`` write crash-consistent
+per-replica snapshots; ``--resume JOURNAL`` rebuilds a fleet from a dead
+process's journal and snapshots. ``fleet[...]`` and ``resume:`` lines sum
+up what happened.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \
+        --reduced --device cpu --batch 4 --prompt-len 20 --max-new 12 \
+        --block-size 8 --num-blocks 24 --replicas 2 --fleet-fault-plan \
+        canned --journal-out wal.jsonl --snapshot-dir snaps
+
 Runs on the CUDA card by default; ``--device cpu`` runs the plain PyTorch
 versions of the kernels instead (with ``--reduced`` for a CPU-sized model).
 Weights are random, drawn from ``--seed``; prompts too. The paged-engine
@@ -49,11 +64,13 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.models.lm import cast_matrix_params
 from repro_torch.models.registry import (GRID_ARCHS, get_config,
                                          init_lm_params, reduce_config)
 from repro_torch.serve import (ContinuousEngine, EngineGuard,
                                EngineSheddingError, FaultInjector, FaultPlan,
-                               ServeEngine, Telemetry, canned_plan,
+                               FleetSupervisor, Journal, Router, ServeEngine,
+                               Telemetry, canned_fleet_plan, canned_plan,
                                check_invariants)
 from repro_torch.utils.device import resolve_device
 
@@ -161,12 +178,70 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="paged engine: per-request time-to-first-token "
                          "budget; requests that miss it are cancelled "
                          "(reason 'deadline'). 0 = no budget")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="the production mesh (needs parallel/, not ported)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="paged engine: serve through a FleetSupervisor "
+                         "over this many engine replicas (serve/"
+                         "supervisor.py) — prefix-affinity routing, "
+                         "step-watchdog supervision, journaled failover. "
+                         "1 = the plain single-engine path")
+    ap.add_argument("--router", choices=("affinity", "round-robin"),
+                    default="affinity",
+                    help="fleet placement policy: radix-cache prefix "
+                         "affinity (load/budget fallback) or round-robin")
+    ap.add_argument("--journal-out", default=None, metavar="PATH",
+                    help="fleet: write the write-ahead request journal "
+                         "(JSONL; serve/journal.py) — submit/placement/"
+                         "token/terminal records, replayable post-mortem")
+    ap.add_argument("--fleet-fault-plan", default=None,
+                    metavar="PATH|canned",
+                    help="fleet: attach the fleet fault injector — a "
+                         "FaultPlan JSON file, or the literal 'canned' "
+                         "for the reference replica-crash + hang plan "
+                         "(serve/faults.py canned_fleet_plan)")
+    ap.add_argument("--journal-fsync", choices=("none", "interval",
+                                                "always"),
+                    default="interval",
+                    help="journal durability policy: 'always' fsyncs "
+                         "every record (no tail loss, slowest), "
+                         "'interval' flushes per record and fsyncs "
+                         "periodically (default; bounded tail-loss "
+                         "window), 'none' leaves records in stdio "
+                         "buffers (fastest; a crash loses everything "
+                         "unflushed). Dropped-tail records surface as "
+                         "journal_tail_lost_total at recovery")
+    ap.add_argument("--snapshot-dir", default=None, metavar="DIR",
+                    help="fleet durability: write crash-consistent "
+                         "per-replica snapshots (serve/snapshot.py — "
+                         "KV pools, radix tree, scheduler queues, engine "
+                         "counters; atomic tmp+rename, per-section "
+                         "checksums) into this directory, plus one at "
+                         "clean drain. Implies the fleet path even with "
+                         "--replicas 1")
+    ap.add_argument("--snapshot-every", type=int, default=0, metavar="N",
+                    help="fleet durability: snapshot every N supervision "
+                         "ticks (0 = only the final snapshot at drain); "
+                         "each snapshot also anchors the journal so "
+                         "replay cost is bounded by the suffix")
+    ap.add_argument("--resume", default=None, metavar="JOURNAL",
+                    help="crash recovery: rebuild the fleet from this "
+                         "prior write-ahead journal (+ --snapshot-dir "
+                         "snapshots when available — warm radix/pool "
+                         "restore with fsck fallback to cold), adopt "
+                         "every journaled request (terminal streams "
+                         "resolve from the journal; in-flight ones "
+                         "resubmit via the [prompt ‖ emitted] recompute "
+                         "contract), then serve the new workload")
     return ap.parse_args(argv)
 
 
 def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
     args = parse_args(argv)
+    if args.production_mesh:
+        raise NotImplementedError(
+            "--production-mesh needs the port of parallel/")
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -187,6 +262,11 @@ def main(argv=None) -> None:
                            temperature=args.temperature, seed=args.seed)
         _report(cfg, device, [r.tolist() for r in res.tokens],
                 time.time() - t0, "static")
+        return
+    if args.replicas > 1 or args.snapshot_dir or args.resume:
+        t0 = time.time()
+        rows, dt = _serve_fleet(args, cfg, params, prompts, device, t0)
+        _report(cfg, device, rows, dt, "paged")
         return
     want_tel = args.telemetry if args.telemetry is not None else \
         bool(args.metrics_out or args.trace_out or args.numerics_every)
@@ -264,6 +344,108 @@ def main(argv=None) -> None:
     if tel is not None:
         _report_telemetry(args, cfg, tel)
     _report(cfg, device, rows, dt, "paged")
+
+
+def _serve_fleet(args, cfg, params, prompts, device, t0):
+    """Serve the workload through a FleetSupervisor over N replicas:
+    prefix-affinity (or round-robin) placement, step-watchdog supervision,
+    journaled failover, fleet-aggregated metrics. The replicas share one
+    copy of the weights, cast once to the compute dtype on the device."""
+    want_tel = bool(args.telemetry or args.metrics_out)
+    params = cast_matrix_params(params, cfg.compute_dtype_)
+
+    def engine_factory():
+        eng = ContinuousEngine(
+            cfg, params, block_size=args.block_size,
+            num_blocks=args.num_blocks, max_batch=args.batch,
+            max_len=args.prompt_len + args.max_new, seed=args.seed,
+            prefix_cache=args.prefix_cache,
+            evict_policy=args.evict_policy,
+            prefill_chunk=args.prefill_chunk,
+            prefill_budget=args.prefill_budget,
+            kv_dtype=None if args.kv_dtype == "auto" else args.kv_dtype,
+            kv_tile_blocks=args.kv_tile_blocks,
+            decode_split_k=args.decode_split_k,
+            telemetry=Telemetry() if want_tel else None,
+            guard=EngineGuard() if args.guard else None, device=device)
+        eng.warmup()
+        return eng
+
+    faults = None
+    if args.fleet_fault_plan:
+        plan = (canned_fleet_plan() if args.fleet_fault_plan == "canned"
+                else FaultPlan.load(args.fleet_fault_plan))
+        faults = FaultInjector(plan)
+        log.info("fleet fault injector attached: %d specs, seed %d",
+                 len(plan.specs), plan.seed)
+    journal = Journal(path=args.journal_out, fsync=args.journal_fsync)
+    if args.resume:
+        # crash recovery: snapshot warm-restore per replica, then adopt
+        # every journaled request (terminal ones resolve immediately;
+        # in-flight ones resubmit via the recompute contract)
+        sup = FleetSupervisor.resume(
+            engine_factory, args.replicas, args.resume,
+            snapshot_dir=args.snapshot_dir, journal=journal,
+            router=Router(args.router), faults=faults,
+            step_parallel=True, snapshot_every=args.snapshot_every)
+        for info in sup.restore_info:
+            log.info("replica %d restore: %s (%s)", info["replica"],
+                     info["mode"], info["reason"])
+        log.info("resume: %d requests adopted (%d already terminal), "
+                 "%d torn-tail records lost",
+                 int(sup.tracker.c_recovered.value),
+                 sum(1 for t in sup.tracker.requests.values()
+                     if t.result is not None),
+                 int(sup.tracker.c_tail_lost.value))
+    else:
+        engines = [engine_factory() for _ in range(args.replicas)]
+        sup = FleetSupervisor(engines, router=Router(args.router),
+                              journal=journal, faults=faults,
+                              step_parallel=True,
+                              snapshot_dir=args.snapshot_dir,
+                              snapshot_every=args.snapshot_every)
+    treqs = [sup.submit(p, args.max_new, temperature=args.temperature,
+                        deadline_s=args.deadline_ms / 1e3 or None,
+                        ttft_budget_s=args.ttft_budget_ms / 1e3 or None)
+             for p in prompts]
+    sup.run_until_drained()
+    dt = time.time() - t0
+    tr = sup.tracker
+    log.info("fleet[%dx %s, %s router]: %d completed, %d failed, "
+             "%d failovers, %d placement retries in %d ticks",
+             args.replicas, cfg.name, args.router,
+             int(tr.c_completed.value), int(tr.c_failed.value),
+             int(tr.c_failovers.value), int(tr.c_retries.value), sup.ticks)
+    log.info("fleet health: crashed=%d hung=%d alive=%d",
+             int(sup.c_crashed.value), int(sup.c_hung.value),
+             int(sup.g_alive.value))
+    for name, h in (("ttft", tr.h_ttft), ("e2e", tr.h_e2e)):
+        if h.count:
+            log.info("fleet %s: p50 %.1fms p99 %.1fms (n=%d)", name,
+                     h.quantile(0.5) * 1e3, h.quantile(0.99) * 1e3,
+                     h.count)
+    events = journal.replay().replica_events
+    if events:
+        log.info("fleet replica events: %s",
+                 [(e["event"], e["replica"], e["tick"]) for e in events])
+    if args.metrics_out:
+        agg = sup.collect_metrics()
+        with open(args.metrics_out, "w") as f:
+            f.write(agg.prometheus_text())
+        log.info("fleet-aggregated metrics -> %s", args.metrics_out)
+    if args.snapshot_dir:
+        # final snapshot at quiescence: the next process warm-restarts
+        # with the full radix tree even after a clean shutdown
+        sup.save_snapshots()
+        log.info("durable snapshots (%d written this run) -> %s",
+                 int(sup.c_snapshots.value), args.snapshot_dir)
+    if args.journal_out:
+        log.info("write-ahead journal (%d records, fsync=%s) -> %s",
+                 len(journal.records), args.journal_fsync,
+                 args.journal_out)
+    sup.close()
+    rows = [list(t.result.tokens) for t in treqs]
+    return rows, dt
 
 
 def _report_telemetry(args, cfg, tel: Telemetry) -> None:

@@ -29,7 +29,10 @@ bfloat16 outputs 1e-2 of each element's size) to its plain version
 held so on both of their routes (the bulk-copy kernels and the earlier
 ones), each route's launch counter checked; K1's bulk-copy route also to
 its split version with the same lane layout
-(``paged_decode_live_split_ref``), its zombie rows exactly 0.
+(``paged_decode_live_split_ref``), its zombie rows exactly 0. The fleet
+and snapshot tests hold the serving layers on the card EXACTLY: a threaded
+fleet's streams and journal equal a one-thread fleet's, and a restored
+engine continues a snapshotted one token for token, its pool bits equal.
 """
 import numpy as np
 import pytest
@@ -1044,3 +1047,100 @@ def test_guarded_canned_plan_on_the_card(cuda_device, kv):
     assert flash_decode_paged.launches_bulk - k1[1] == n1
     assert flash_prefill_paged.launches_tc - k2[1] == \
         (n2 if kv == "auto" else 0)
+
+
+def test_fleet_canned_plan_threads_on_the_card(cuda_device):
+    """Reduced llama3.2-3b in bfloat16: ``fleet_bench``'s chaos drive (3
+    replicas, the canned fleet plan, the journal, the invariants every
+    tick) with the replicas stepping in threads and then on one thread:
+    streams, ticks and journal records equal (``t`` and ``crc`` excepted);
+    ``c_crashed`` and ``c_hung`` equal to the plan's crash and hang, no
+    other death; every K1 launch on the bulk-copy route, n_layers a decode
+    step."""
+    from repro_torch.benchmarks import fleet_bench as fb
+    from repro_torch.models.registry import (get_config, init_lm_params,
+                                             reduce_config)
+    from repro_torch.serve import FaultInjector, Journal
+    cfg = reduce_config(get_config("llama3.2-3b")).replace(
+        compute_dtype="bfloat16")
+    params = init_lm_params(cfg, torch.Generator().manual_seed(0))
+    arrivals = fb.make_workload(4, 4, 0.75, cfg.vocab_size, 0)
+    engines = fb.build_engines(cfg, params, 3, 16, device=cuda_device)
+    sup, _, _ = fb.drive(engines, arrivals, 16)
+    assert sup.c_crashed.value == 0 and sup.c_hung.value == 0
+    plan, _ = fb.chaos_plan(sup.ticks, 3)
+    runs = []
+    for parallel in (True, False):
+        engines = fb.build_engines(cfg, params, 3, 16, device=cuda_device)
+        k1 = (flash_decode_paged.launches, flash_decode_paged.launches_bulk)
+        journal = Journal()
+        sup, treqs, _ = fb.drive(engines, arrivals, 16,
+                                 faults=FaultInjector(plan), journal=journal,
+                                 check_each_tick=True,
+                                 step_parallel=parallel)
+        torch.cuda.synchronize()
+        n1 = flash_decode_paged.launches - k1[0]
+        assert n1 == cfg.n_layers * sum(e.metrics.decode_steps
+                                        for e in engines) > 0
+        assert flash_decode_paged.launches_bulk - k1[1] == n1
+        assert sup.c_crashed.value == 1 and sup.c_hung.value == 1
+        assert all(t.result.ok for t in treqs)
+        assert sum(t.n_failovers for t in treqs) > 0
+        runs.append(([list(t.result.tokens) for t in treqs], sup.ticks,
+                     [{k: v for k, v in r.items() if k not in ("t", "crc")}
+                      for r in journal.records]))
+    assert runs[0] == runs[1]
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_snapshot_roundtrip_on_the_card(cuda_device, kv, tmp_path):
+    """Reduced llama3.2-3b in bfloat16, a card engine mid-drive (a shared
+    prefix, COW re-hits): its snapshot applied to a fresh card engine
+    continues byte-identically; the pool (bf16 bits, or int8 codes and
+    scales) equal after the round trip."""
+    from repro_torch.models.registry import (get_config, init_lm_params,
+                                             reduce_config)
+    from repro_torch.serve import (ContinuousEngine, Snapshot,
+                                   apply_snapshot, leaked_blocks,
+                                   write_snapshot)
+    cfg = reduce_config(get_config("llama3.2-3b")).replace(
+        compute_dtype="bfloat16")
+    params = init_lm_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(3)
+    prefix = rng.integers(1, cfg.vocab_size, 12).astype(np.int32)
+    prompts = [np.concatenate([prefix, rng.integers(
+        1, cfg.vocab_size, 6).astype(np.int32)]) for _ in range(4)]
+
+    def engine():
+        eng = ContinuousEngine(cfg, params, block_size=8, num_blocks=24,
+                               max_batch=3, max_len=48, kv_dtype=kv,
+                               device=cuda_device)
+        eng.warmup()
+        return eng
+
+    eng = engine()
+    eng.submit(prompts[0], 4)
+    eng.run()
+    for p in prompts[1:]:
+        eng.submit(p, 8)
+    for _ in range(3):
+        eng.step()
+    path = str(tmp_path / "card.snap")
+    write_snapshot(eng, path)
+    fresh = engine()
+    apply_snapshot(fresh, Snapshot.read(path))
+    for name in ("k", "v") + (("k_scale", "v_scale") if kv == "int8"
+                              else ()):
+        a, b = getattr(eng.pool, name), getattr(fresh.pool, name)
+        assert b.device == a.device and b.dtype == a.dtype
+        if a.dtype == torch.bfloat16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        assert torch.equal(a, b), name
+    assert fresh._vec.device == eng._vec.device
+
+    def streams(done):
+        return {r: (list(q.tokens), q.finish_reason)
+                for r, q in done.items()}
+
+    assert streams(fresh.run()) == streams(eng.run())
+    assert leaked_blocks(fresh.pool, fresh.prefix_cache) == 0

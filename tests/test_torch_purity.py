@@ -1,5 +1,6 @@
 """The port stands alone: nothing under ``src/repro_torch/``, and not
-``chip_smoke.py``, imports JAX or the JAX package; its entry points default
+``chip_smoke.py``, imports JAX, the JAX package or ``ml_dtypes`` (which
+comes with JAX, and the card's machine has none); its entry points default
 to the CUDA card and never to the CPU."""
 import ast
 import inspect
@@ -9,6 +10,7 @@ import pytest
 import torch
 
 from repro_torch.benchmarks import (autotune_bench, decode_paged_bench,
+                                    fleet_bench, restore_bench,
                                     serve_throughput, table3_accuracy)
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
@@ -18,7 +20,7 @@ from repro_torch.utils.device import resolve_device
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _imported_roots(path: Path):
@@ -35,6 +37,14 @@ def test_the_walk_covers_the_telemetry_modules():
     names = {str(p.relative_to(ROOT)) for p in FILES}
     assert {"src/repro_torch/serve/metrics.py",
             "src/repro_torch/serve/telemetry.py"} <= names
+
+
+def test_the_walk_covers_the_fleet_and_durability_modules():
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {f"src/repro_torch/serve/{m}.py" for m in (
+        "router", "journal", "frontend", "supervisor", "snapshot")} | {
+        "src/repro_torch/benchmarks/fleet_bench.py",
+        "src/repro_torch/benchmarks/restore_bench.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -61,6 +71,10 @@ def test_entry_points_default_to_the_card():
     assert table3_accuracy.parse_args([]).device == "cuda"
     assert decode_paged_bench.parse_args([]).device == "cuda"
     assert autotune_bench.parse_args([]).device == "cuda"
+    assert fleet_bench.parse_args([]).device == "cuda"
+    assert restore_bench.parse_args([]).device == "cuda"
+    assert launch_serve.parse_args(["--engine", "paged", "--replicas",
+                                    "2"]).device == "cuda"
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"
     else:
