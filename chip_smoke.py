@@ -233,9 +233,9 @@ Phases, in order; any failure raises and exits non-zero:
    bytes and write/read/restore times, a bf16 pool's bits through the
    round trip; the corrupted snapshot's cold fallback; warm against cold
    (fewer prefill tokens, fewer ticks to first token); (d) both benches'
-   CLIs at the reference's reduced defaults in child processes (a gate
-   they miss is printed, not fatal). Every K1 launch on the bulk-copy
-   route, every bf16 K2 launch on the tensor cores.
+   CLIs at the reference's reduced defaults in child processes (their
+   gates are counts: a gate they miss ends the run). Every K1 launch on
+   the bulk-copy route, every bf16 K2 launch on the tensor cores.
 
 Phase 4 also runs one engine with ``attention_impl="flash"``, whose one-shot
 prefill goes through K3.
@@ -3361,12 +3361,12 @@ def _deltas_text(deltas) -> str:
             f"p50 {float(np.median(errs)):.3f}")
 
 
-def _bench_cli(tag, name, args, what, card, cwd=ROOT, tolerate=None):
+def _bench_cli(tag, name, args, what, card, cwd=ROOT, tolerate=()):
     """The CLI of ``repro_torch.benchmarks.<name>`` with ``args`` (the
     reference's reduced defaults, ``what``) in a child process on the card.
-    A gate it misses is printed (and recorded in ``ROADMAP.md``) when
-    ``tolerate`` is None or the miss starts with one of its prefixes; any
-    other miss, or any other failure, ends the run."""
+    A gate it misses is printed (and recorded in ``ROADMAP.md``) when every
+    miss starts with one of the prefixes in ``tolerate``; any other miss,
+    or any other failure, ends the run."""
     import os
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
@@ -3377,7 +3377,7 @@ def _bench_cli(tag, name, args, what, card, cwd=ROOT, tolerate=None):
         "; ") if out.returncode else []
     check(out.returncode == 0 or (
         "gates failed: " in out.stderr and (
-            tolerate is None or
+            tolerate and
             all(m.startswith(tuple(tolerate)) for m in missed))),
           f"{name} CLI exited {out.returncode}: {out.stderr[-3000:]}")
     prefix = name.split("_")[0] + ","

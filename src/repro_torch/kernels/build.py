@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _ptxas_log = ""
 
@@ -182,6 +183,15 @@ def ptxas_report() -> str:
     """What ptxas said about each kernel when the library was built."""
     load_library()
     return _ptxas_log
+
+
+def count(fn, *names: str, by: int = 1) -> None:
+    """Add ``by`` to each of the wrapper ``fn``'s launch counts ``names``
+    under one lock: a fleet steps its replicas from several threads, and a
+    bare ``+=`` on a function attribute can lose an update."""
+    with _count_lock:
+        for name in names:
+            setattr(fn, name, getattr(fn, name) + by)
 
 
 def check(err: int, what: str) -> None:

@@ -141,10 +141,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check_cuda("flash_attention", q, k, v)
     if tensor_core_route(q):
         out, m, d = _forward_tensor_cores(q, k, v, causal, intmax)
-        flash_attention.launches_tc += 1
+        build.count(flash_attention, "launches", "launches_tc")
     else:
         out, m, d = _forward_cuda_cores(q, k, v, causal, intmax)
-    flash_attention.launches += 1
+        build.count(flash_attention, "launches")
     return (out, m, d) if return_stats else out
 
 
@@ -218,10 +218,10 @@ def flash_attention_bwd(q, k, v, o, do, m, d, *, causal: bool = True):
     delta = torch.sum(do.float() * o.float(), dim=-1).contiguous()
     if tensor_core_route(q):
         grads = _backward_tensor_cores(q, k, v, do, m, d, delta, causal)
-        flash_attention_bwd.launches_tc += 2
+        build.count(flash_attention_bwd, "launches", "launches_tc", by=2)
     else:
         grads = _backward_cuda_cores(q, k, v, do, m, d, delta, causal)
-    flash_attention_bwd.launches += 2
+        build.count(flash_attention_bwd, "launches", by=2)
     return grads
 
 

@@ -178,9 +178,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B, Hq, D) pre-scaled; k, v (B, Hkv, S, D) float32 or bfloat16;
     lengths (B,) → (B, Hq, D) in q's dtype."""
     out, bulk = _launch(q, k, v, lengths, intmax)
-    if bulk:
-        flash_decode.launches_bulk += 1
-    flash_decode.launches += 1
+    build.count(flash_decode, "launches",
+                *(("launches_bulk",) if bulk else ()))
     return out
 
 

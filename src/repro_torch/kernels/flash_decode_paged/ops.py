@@ -262,9 +262,8 @@ def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
     q's dtype."""
     out, bulk = _launch(q, k_pool, v_pool, block_tables, lengths, k_scale,
                         v_scale, intmax, kv_tile_blocks, split_k)
-    if bulk:
-        flash_decode_paged.launches_bulk += 1
-    flash_decode_paged.launches += 1
+    build.count(flash_decode_paged, "launches",
+                *(("launches_bulk",) if bulk else ()))
     return out
 
 
@@ -329,9 +328,8 @@ def flash_decode_paged_single(q: torch.Tensor, k_pool: torch.Tensor,
     (B,) → (B, Hq, D) in q's dtype. Any GQA group size."""
     out, bulk = _launch_single(q, k_pool, v_pool, block_tables, lengths,
                                k_scale, v_scale, intmax)
-    if bulk:
-        flash_decode_paged_single.launches_bulk += 1
-    flash_decode_paged_single.launches += 1
+    build.count(flash_decode_paged_single, "launches",
+                *(("launches_bulk",) if bulk else ()))
     return out
 
 

@@ -139,9 +139,8 @@ def flash_prefill_paged(q: torch.Tensor, k_pool: torch.Tensor,
     kernel's wrapper does; the kernels' own KV tile is 64 rows."""
     out, tc = _launch(q, k_pool, v_pool, block_tables, q_pos0, k_scale,
                       v_scale, intmax, kv_tile_blocks)
-    if tc:
-        flash_prefill_paged.launches_tc += 1
-    flash_prefill_paged.launches += 1
+    build.count(flash_prefill_paged, "launches",
+                *(("launches_tc",) if tc else ()))
     return out
 
 

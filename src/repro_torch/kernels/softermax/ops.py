@@ -72,9 +72,8 @@ def softermax_rows(x: torch.Tensor, *, intmax: bool = True) -> torch.Tensor:
     out, reg = _launch(x, intmax)
     if reg is None:                           # nothing to launch
         return out
-    if reg:
-        softermax_rows.launches_reg += 1
-    softermax_rows.launches += 1
+    build.count(softermax_rows, "launches",
+                *(("launches_reg",) if reg else ()))
     return out
 
 

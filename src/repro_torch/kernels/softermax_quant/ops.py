@@ -78,9 +78,8 @@ def softermax_quant_rows(x: torch.Tensor, *,
     out, reg = _launch(x, vector_size)
     if reg is None:                           # nothing to launch
         return out
-    if reg:
-        softermax_quant_rows.launches_reg += 1
-    softermax_quant_rows.launches += 1
+    build.count(softermax_quant_rows, "launches",
+                *(("launches_reg",) if reg else ()))
     return out
 
 

@@ -350,8 +350,15 @@ def _serve_fleet(args, cfg, params, prompts, device, t0):
     """Serve the workload through a FleetSupervisor over N replicas:
     prefix-affinity (or round-robin) placement, step-watchdog supervision,
     journaled failover, fleet-aggregated metrics. The replicas share one
-    copy of the weights, cast once to the compute dtype on the device."""
+    copy of the weights, cast once to the compute dtype on the device.
+
+    On the CUDA card the replicas step on one thread: they all launch on
+    the one current stream, so threads overlap no device work, and on an
+    H100 a threaded drive took 1.6-2.0x as long as the same drive on one
+    thread (``chip_smoke.py`` phase 29 (b)). On the CPU they step in
+    threads, as the reference's launcher does."""
     want_tel = bool(args.telemetry or args.metrics_out)
+    step_parallel = device.type != "cuda"
     params = cast_matrix_params(params, cfg.compute_dtype_)
 
     def engine_factory():
@@ -387,7 +394,7 @@ def _serve_fleet(args, cfg, params, prompts, device, t0):
             engine_factory, args.replicas, args.resume,
             snapshot_dir=args.snapshot_dir, journal=journal,
             router=Router(args.router), faults=faults,
-            step_parallel=True, snapshot_every=args.snapshot_every)
+            step_parallel=step_parallel, snapshot_every=args.snapshot_every)
         for info in sup.restore_info:
             log.info("replica %d restore: %s (%s)", info["replica"],
                      info["mode"], info["reason"])
@@ -401,7 +408,7 @@ def _serve_fleet(args, cfg, params, prompts, device, t0):
         engines = [engine_factory() for _ in range(args.replicas)]
         sup = FleetSupervisor(engines, router=Router(args.router),
                               journal=journal, faults=faults,
-                              step_parallel=True,
+                              step_parallel=step_parallel,
                               snapshot_dir=args.snapshot_dir,
                               snapshot_every=args.snapshot_every)
     treqs = [sup.submit(p, args.max_new, temperature=args.temperature,

@@ -40,9 +40,12 @@ step in a thread pool. Every thread launches on its current stream, the
 device's default stream, so all replicas' kernels run in one stream
 order: the decode kernels' merge tickets, kept per (device, stream) and
 left at 0 by every launch, and the routes their wrappers cache per
-geometry are shared safely; the kernels' shared library loads under a
-lock. Per-replica streams would overlap replicas on the card; they are a
-change of the step's timing, not of the fleet, and are not made here.
+geometry are shared safely; the kernels' shared library loads, and
+their launch counts are bumped, under a lock. On one stream the threads
+overlap no card work and slow the host, so the launcher steps a card
+fleet on one thread. Per-replica streams would overlap replicas on the
+card; they are a change of the step's timing, not of the fleet, and are
+not made here.
 
 A hung replica differs from a crashed one only in its afterlife: its
 requests fail over identically, but when the device comes back the

@@ -1092,6 +1092,33 @@ def test_fleet_canned_plan_threads_on_the_card(cuda_device):
     assert runs[0] == runs[1]
 
 
+def test_launcher_fleet_on_one_thread_on_the_card(cuda_device, tmp_path,
+                                                  monkeypatch):
+    """The launcher's fleet path on the card (reduced llama3.2-3b, 2
+    replicas, the canned fleet plan, a journal): the replicas step on one
+    thread; every request completes; the plan's crash is the only death."""
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve import FleetSupervisor
+    made = []
+
+    class Recording(FleetSupervisor):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    monkeypatch.setattr(launch_serve, "FleetSupervisor", Recording)
+    launch_serve.main([
+        "--engine", "paged", "--reduced", "--device", str(cuda_device),
+        "--arch", "llama3.2-3b", "--batch", "4", "--prompt-len", "20",
+        "--max-new", "12", "--block-size", "8", "--num-blocks", "24",
+        "--replicas", "2", "--fleet-fault-plan", "canned",
+        "--journal-out", str(tmp_path / "wal.jsonl")])
+    sup = made[-1]
+    assert not sup.step_parallel
+    assert int(sup.tracker.c_completed.value) == 4
+    assert sup.c_crashed.value == 1 and sup.c_hung.value == 0
+
+
 @pytest.mark.parametrize("kv", ["bf16", "int8"])
 def test_snapshot_roundtrip_on_the_card(cuda_device, kv, tmp_path):
     """Reduced llama3.2-3b in bfloat16, a card engine mid-drive (a shared

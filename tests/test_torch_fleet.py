@@ -577,6 +577,36 @@ class TestFailover:
             sys.setswitchinterval(old)
         assert runs[0] == runs[1]
 
+    def test_launch_counts_under_threads(self):
+        """The kernel wrappers' launch counts, bumped from four threads
+        while the interpreter switches threads every microsecond, lose no
+        update."""
+        import threading
+
+        from repro_torch.kernels import build
+
+        def wrapper():
+            pass
+
+        wrapper.launches = wrapper.launches_bulk = 0
+
+        def bump():
+            for i in range(5000):
+                build.count(wrapper, "launches",
+                            *(("launches_bulk",) if i % 2 else ()))
+
+        old = sys.getswitchinterval()
+        try:
+            sys.setswitchinterval(1e-6)
+            threads = [threading.Thread(target=bump) for _ in range(4)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        finally:
+            sys.setswitchinterval(old)
+        assert (wrapper.launches, wrapper.launches_bulk) == (20000, 10000)
+
     def test_organic_engine_death_is_a_crash(self, setup):
         cfg, params = setup
         prompts = _prompts(cfg, 4, seed=44)
@@ -812,6 +842,7 @@ def test_launcher_fleet_then_resume_lines(tmp_path, caplog, monkeypatch):
                           int(sup.g_alive.value)]
     assert int(tr.c_completed.value) == 4 and sup.c_crashed.value == 1
     assert tr.c_failovers.value > 0
+    assert sup.step_parallel    # threads on the CPU, one thread on a card
     assert (tmp_path / "snaps" / "replica1.snap").exists()
     records = [json.loads(x) for x in open(wal)]
     assert f"write-ahead journal ({len(records)} records, fsync=interval)" \
