@@ -149,7 +149,7 @@ Phases, in order; any failure raises and exits non-zero:
 25. (K) The four ported serving benches' own functions at their default
    workloads, at llama3.2-3b's full width in bf16 with phase 13's weights
    (attention projections at their true fan-in), each bench's rounds cut
-   to 3 (printed): ``prefill_paged_bench`` (4 documents, shared 576, body
+   to 2 (printed): ``prefill_paged_bench`` (4 documents, shared 576, body
    3,072, chunk 256, block 32: the dense suffix prefill against K2's
    chunks, then a one-shot and a chunked engine), ``kv_int8_bench`` (10
    requests, prompt 40, 56 new tokens, block 16, 18 bf16 blocks' bytes, at
@@ -236,6 +236,34 @@ Phases, in order; any failure raises and exits non-zero:
    CLIs at the reference's reduced defaults in child processes (their
    gates are counts: a gate they miss ends the run). Every K1 launch on
    the bulk-copy route, every bf16 K2 launch on the tensor cores.
+30. (P) The MoE family at moonshot-v1-16b-a3b's full width (48 layers, d
+   2048, 16/16 heads of 128, 64 experts of 1408, top-6, vocab 163,840):
+   (a) K1 and K2 on both routes and K5 at G = 1 (Hq = Hkv = 16, D 128,
+   block 16), K6 forward and backward at the router's rows (8, 64) and
+   (1024, 64), each against its plain version; (b) 28.06 B random bf16
+   parameters (56.1 GB) drawn on the card one layer slice at a time,
+   attention projections at true fan-in; (c) the paged engine on 8
+   prompts of 128-1024 tokens, 32 new: one-shot, chunked-256 with a
+   shared-prefix resubmit, an int8 pool; every request finishes, the pool
+   invariants hold, K1 = 48 x decode steps (bulk copy), bf16 K2 = 48 x
+   chunks (tensor cores), K6 = the MoE calls, dropped assignments
+   printed; (d) the static engine on 8 x 1024 tokens (K5 = 48 x 31, bulk
+   copy); (e) one 1024-token prompt through the paged one-shot engine
+   and the static engine, each MoE call on the same token set: streams
+   equal, or the first difference excused by a router near tie (the
+   k-th/(k+1)-th selection swapped within twice the runs' probability
+   noise) or by phase 13's logit near-tie audit; its prefill logits
+   against ``lm_forward`` within 2e-2 of the largest; chunked against
+   one-shot and static B = 8 against paged printed, not gated (other
+   token sets a call, other drops); (f) ms per synced decode step, a
+   profile of 5 paged and 5 static decode steps, K6 at the router's rows
+   beside ``torch.softmax`` and its byte bound, K1/K2/K5 at G = 1; (g)
+   training at full width with the depth cut to 2 MoE layers (fp32
+   master weights, AdamW, bf16, remat, flash, seq 4096, batch 1): three
+   steps, ce and aux finite, aux > 0, K3, K4 and K6 each 4 a step; (h)
+   ``launch.serve --arch moonshot-v1-16b-a3b --reduced``, static and
+   paged, print the same greedy tokens, and ``launch.train`` takes 3
+   steps.
 
 Phase 4 also runs one engine with ``attention_impl="flash"``, whose one-shot
 prefill goes through K3.
@@ -246,6 +274,7 @@ result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -2781,7 +2810,8 @@ def phase_single_times(dev, bench_args, launches):
     return [row]
 
 
-BENCH_REPEATS = 3        # phase 25: rounds of each bench, cut from its default
+BENCH_REPEATS = 2        # phase 25: rounds of each bench, cut from its
+#                          default (3 until phase 30 joined the run)
 FLEET_PROFILE_TICKS = 20  # phase 29: the fleet drive's profiled window is
 #                          ticks [20, 40), full batches while requests
 #                          still arrive (the drive takes 244 ticks)
@@ -4113,6 +4143,719 @@ def phase_fleet(dev, card):
           f"{t_c:.1f}, (d) {total - t_ab - t_c:.1f})")
 
 
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_TRAIN_LAYERS = 2     # phase 30 (g): full width, depth cut to 2 MoE layers
+
+
+def _kernel_fns():
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.flash_decode_paged import (
+        flash_decode_paged, flash_decode_paged_single)
+    from repro_torch.kernels.flash_prefill_paged import flash_prefill_paged
+    from repro_torch.kernels.softermax import softermax_rows
+    from repro_torch.kernels.softermax_quant import softermax_quant_rows
+    return (flash_decode_paged, flash_decode_paged_single,
+            flash_prefill_paged, flash_attention, flash_attention_bwd,
+            flash_decode, softermax_rows, softermax_quant_rows)
+
+
+def _save_counts():
+    """Every kernel wrapper's launch counters, to put back after launches
+    made for a comparison or a timing (those do not count)."""
+    return [(fn, name, getattr(fn, name)) for fn in _kernel_fns()
+            for name in vars(fn) if name.startswith("launches")]
+
+
+def _restore_counts(saved):
+    for fn, name, value in saved:
+        setattr(fn, name, value)
+
+
+class _MoeCalls:
+    """Inside a ``with`` block, wraps ``models/moe.py::route`` (which every
+    MoE call looks up at call time): counts the MoE calls and sums their
+    dropped assignments on the card (read once, at the end); with
+    ``keep_routes`` it also keeps each call's selection and probabilities
+    for ``_routing_flip``."""
+
+    def __init__(self, keep_routes=False):
+        self.calls, self._dropped, self.routes = 0, [], []
+        self.keep_routes = keep_routes
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._route = route = moe.route
+
+        def observed(*args):
+            r = route(*args)
+            self.calls += 1
+            self._dropped.append((~r.keep).sum())
+            if self.keep_routes:
+                self.routes.append((r.sel.clone(), r.probs.detach().clone()))
+            return r
+
+        moe.route = observed
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self._route
+
+    def dropped(self) -> int:
+        import torch
+        return int(torch.stack(self._dropped).sum()) if self._dropped else 0
+
+
+def _routing_flip(a_routes, b_routes):
+    """The first MoE call whose selections differ between two runs of the
+    same token sequence, calls aligned one to one: (call index, [(row,
+    gap in a, gap in b)], band), or None. A row's gap in run a is, over
+    the positions where the selections differ, the largest margin by which
+    a's own probabilities prefer a's expert to b's (and the reverse for
+    b); a near tie has both within ``band``: twice the largest |probability
+    difference| between the runs over every earlier call and this call's
+    unflipped rows (the noise of the two runs' arithmetic, as in
+    ``_near_tie_audit``)."""
+    noise = 0.0
+    for i, ((sa, pa), (sb, pb)) in enumerate(zip(a_routes, b_routes)):
+        check(sa.shape == sb.shape, f"MoE call {i}: {tuple(sa.shape)} "
+                                    f"against {tuple(sb.shape)} rows")
+        diff = (sa != sb).any(-1)
+        if not bool(diff.any()):
+            noise = max(noise, (pa - pb).abs().max().item())
+            continue
+        if bool((~diff).any()):
+            noise = max(noise, (pa - pb)[~diff].abs().max().item())
+        rows = []
+        for r in diff.nonzero()[:, 0].tolist():
+            pos = (sa[r] != sb[r]).nonzero()[:, 0]
+            ea, eb = sa[r, pos], sb[r, pos]
+            rows.append((r, (pa[r, ea] - pa[r, eb]).max().item(),
+                         (pb[r, eb] - pb[r, ea]).max().item()))
+        return i, rows, 2 * noise
+    return None
+
+
+def _moe_stream_audit(tag, label, a, b, a_logits, b_logits, a_routes,
+                      b_routes, calls_per_token, vocab):
+    """Two runs' greedy streams of one prompt (a, b: token lists): equal,
+    or the first differing token excused by a routing near tie at or
+    before it (``_routing_flip``) or by ``_near_tie_audit`` on the logits;
+    raises otherwise. Returns the report's first line."""
+    import numpy as np
+    a, b = [int(x) for x in a], [int(x) for x in b]
+    if a == b:
+        return f"{label}: streams equal ({len(a)} tokens)"
+    t = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+    flip = _routing_flip(a_routes, b_routes)
+    if flip is not None and flip[0] // calls_per_token <= t:
+        i, rows, band = flip
+        print(f"{tag} routing near-tie audit ({label}): first routing "
+              f"difference at MoE call {i} (token {i // calls_per_token}, "
+              f"layer {i % calls_per_token}), first differing token {t}; "
+              f"(row, gap a, gap b) {rows}; band {band:.4g}")
+        check(all(ga <= band and gb <= band for _, ga, gb in rows),
+              f"{label}: a routing flip at a decisive probability gap "
+              f"({rows}, band {band:.4g})")
+        return (f"{label}: streams differ from token {t}, after a routing "
+                f"near tie at MoE call {i} (excused)")
+    share, lines = _near_tie_audit(
+        np.array([a]), [list(b)], a_logits,
+        {(0, s): lg[0] for s, lg in enumerate(b_logits)}, vocab)
+    for line in lines:
+        print(f"{tag} near-tie audit ({label}): {line}")
+    return (f"{label}: streams differ from token {t}, routing equal "
+            f"before it, logits at a near tie (excused); {share:.3f} of "
+            f"tokens equal")
+
+
+def _record_samplings(eng):
+    """Keep the logits of every sampling of an engine serving one request
+    on one row, in order: the t-th is token t's."""
+    rec, greedy = [], eng._greedy
+
+    def keep(lg):
+        rec.append(lg.clone())
+        return greedy(lg)
+
+    eng._greedy = keep
+    return rec
+
+
+def _moe_params(cfg, dev, seed=0):
+    """Random bf16 weights of ``cfg``'s LM on the card, drawn from
+    ``torch.Generator(dev)`` seeded ``seed``, one layer slice at a time
+    directly in bf16 (``init_params`` draws a whole leaf in f32 and then
+    scales it: moonshot's stacked ``wi`` alone would take 35.4 GB, twice).
+    Each leaf has its schema's distribution, the attention projections at
+    their true fan-in (``_true_fan_in``)."""
+    import torch
+    from repro_torch.models.lm import lm_schema
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def std(path, ps):
+        if ps.std is not None:
+            return ps.std
+        if ps.init == "embed":
+            return 1.0
+        shape = ps.shape[1:] if ps.logical[0] == "layers" else ps.shape
+        if path[-2] == "mixer" and path[-1] in ("wq", "wk", "wv", "wo"):
+            return (shape[0] * (shape[1] if path[-1] == "wo" else 1)) ** -0.5
+        return max(shape[-2] if len(shape) >= 2 else shape[-1], 1) ** -0.5
+
+    def leaf(path, ps):
+        t = torch.empty(ps.shape, dtype=torch.bfloat16, device=dev)
+        if ps.init in ("zeros", "ones"):
+            return t.fill_(float(ps.init == "ones"))
+        s = std(path, ps)
+        for part in (t if ps.logical[0] == "layers" else [t]):
+            part.normal_(0.0, s, generator=g)
+        return t
+
+    def walk(schema, path):
+        if isinstance(schema, dict):
+            return {k: walk(schema[k], path + (k,)) for k in sorted(schema)}
+        return leaf(path, schema)
+
+    return walk(lm_schema(cfg), ())
+
+
+def _moe_kernel_parity(tag, dev):
+    """(a) K1 and K2 on both routes, K5, K6 forward and backward at
+    moonshot's geometry: Hq = Hkv = 16 (G = 1), D 128, block 16."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_decode import decode_ref, flash_decode
+    from repro_torch.kernels.flash_decode import ops as k5_ops
+    from repro_torch.kernels.flash_decode_paged import (
+        flash_decode_paged, paged_decode_live_split_ref,
+        paged_decode_split_ref)
+    from repro_torch.kernels.flash_decode_paged import ops as k1_ops
+    from repro_torch.kernels.flash_prefill_paged import (
+        flash_prefill_paged, paged_prefill_ref)
+    from repro_torch.kernels.flash_prefill_paged import ops as k2_ops
+    from repro_torch.kernels.parity import parity_error, tolerance
+    from repro_torch.kernels.softermax import (softermax_op, softermax_rows,
+                                               softermax_rows_ref)
+    saved = _save_counts()
+    rng = np.random.default_rng(30)
+    H, D, BS = 16, 128, 16
+    worst = {}
+
+    def hold(name, got, want, dt):
+        err, held = parity_error(got, want)
+        check(held <= tolerance(dt), f"{name}: error {err} ({held})")
+        worst[name] = max(worst.get(name, 0.0), err)
+
+    lens = np.array([0, 1, 17, 1000, 1056, 300, 64, 999], np.int32)
+    W = -(-int(lens.max()) // BS)
+    N = len(lens) * W + 1
+    for kv in ("bfloat16", "int8"):
+        for T, S in ((1, 1), (2, 3)):
+            kp, vp, ks, vs = _pools(rng, N, H, BS, D, kv, dev)
+            bt = torch.from_numpy(rng.permutation(np.arange(1, N))
+                                  .reshape(len(lens), W).astype(np.int32))
+            bt[0] = 0                                 # zombie row
+            bt, ln = bt.to(dev), torch.from_numpy(lens).to(dev)
+            q = _rand(rng, (len(lens), H, D), D ** -0.5).to(dev,
+                                                            torch.bfloat16)
+            bulk0 = flash_decode_paged.launches_bulk
+            got = flash_decode_paged(q, kp, vp, bt, ln, k_scale=ks,
+                                     v_scale=vs, kv_tile_blocks=T, split_k=S)
+            check(flash_decode_paged.launches_bulk == bulk0 + 1,
+                  f"K1 {kv} G=1: not on the bulk-copy route")
+            early = k1_ops._launch(q, kp, vp, bt, ln, ks, vs, True, T, S,
+                                   bulk=False)[0]
+            hold(f"K1 bulk-copy {kv}", got, paged_decode_live_split_ref(
+                q, kp, vp, bt, ln, k_scale=ks, v_scale=vs,
+                n_lanes=k1_ops.bulk_lanes(q, kp, bt, T, S)), torch.bfloat16)
+            hold(f"K1 earlier {kv}", early, paged_decode_split_ref(
+                q, kp, vp, bt, ln, k_scale=ks, v_scale=vs,
+                kv_tile_blocks=T, split_k=S), torch.bfloat16)
+            check(bool(torch.all(got[0] == 0)) and
+                  bool(torch.all(early[0] == 0)), "K1 G=1: zombie row")
+    for kv, C, pos0 in (("bfloat16", 256, 0), ("bfloat16", 256, 768),
+                        ("bfloat16", 64, 1000), ("int8", 256, 768)):
+        W = -(-(pos0 + C) // BS)
+        kp, vp, ks, vs = _pools(rng, W + 1, H, BS, D, kv, dev)
+        bt = torch.from_numpy(rng.permutation(np.arange(1, W + 1))
+                              .astype(np.int32)[None]).to(dev)
+        p0 = torch.tensor([pos0], dtype=torch.int32, device=dev)
+        q = _rand(rng, (1, H, C, D), D ** -0.5).to(dev, torch.bfloat16)
+        want = paged_prefill_ref(q, kp, vp, bt, p0, k_scale=ks, v_scale=vs)
+        tc0 = flash_prefill_paged.launches_tc
+        got = flash_prefill_paged(q, kp, vp, bt, p0, k_scale=ks, v_scale=vs)
+        check(flash_prefill_paged.launches_tc == tc0 + (kv != "int8"),
+              f"K2 {kv} G=1: route")
+        hold(f"K2 {'tensor cores' if kv != 'int8' else 'earlier'} {kv}",
+             got, want, torch.bfloat16)
+        if kv != "int8":
+            early = k2_ops._launch(q, kp, vp, bt, p0, ks, vs, True, 1,
+                                   tc=False)[0]
+            hold(f"K2 earlier {kv}", early, want, torch.bfloat16)
+    for S in (37, 1056):
+        B = 8
+        k = _rand(rng, (B, H, S, D)).to(dev, torch.bfloat16)
+        v = _rand(rng, (B, H, S, D)).to(dev, torch.bfloat16)
+        q = _rand(rng, (B, H, D), D ** -0.5).to(dev, torch.bfloat16)
+        ln = torch.from_numpy(rng.integers(1, S + 1, B).astype(np.int32)) \
+            .to(dev)
+        bulk0 = flash_decode.launches_bulk
+        got = flash_decode(q, k, v, ln)
+        check(flash_decode.launches_bulk == bulk0 + 1,
+              "K5 G=1: not on the bulk-copy route")
+        want = decode_ref(q, k, v, ln)
+        hold("K5 bulk-copy", got, want, torch.bfloat16)
+        hold("K5 earlier", k5_ops._launch(q, k, v, ln, True, bulk=False)[0],
+             want, torch.bfloat16)
+    for rows in (8, 1024):
+        x = _rand(rng, (rows, 64)).to(dev)
+        reg0 = softermax_rows.launches_reg
+        got = softermax_rows(x)
+        check(softermax_rows.launches_reg == reg0 + 1,
+              f"K6 ({rows}, 64): not on the register route")
+        hold("K6 forward", got, softermax_rows_ref(x), torch.float32)
+        g = _rand(rng, (rows, 64)).to(dev)
+        a = x.clone().requires_grad_()
+        softermax_op(a).backward(g)
+        b = x.cpu().requires_grad_()
+        softermax_op(b).backward(g.cpu())
+        err = (a.grad.cpu() - b.grad).abs().max().item()
+        check(err <= 1e-5 * b.grad.abs().max().item(),
+              f"K6 backward ({rows}, 64): error {err}")
+        worst["K6 backward"] = max(worst.get("K6 backward", 0.0), err)
+    _restore_counts(saved)
+    print(f"{tag} (a) kernel parity at Hq = Hkv = 16, D 128, block 16 (K6 "
+          f"at router rows (8, 64) and (1024, 64)), max |err| against the "
+          f"plain versions: " + ", ".join(f"{k} {v:.3g}"
+                                          for k, v in sorted(worst.items())))
+
+
+def _moe_kernel_times(tag, dev):
+    """(f) K6 at the router's rows, and K1, K2, K5 at G = 1 (moonshot's
+    16/16 heads, D 128): device ms beside the plain version, the bound and
+    a library call where one computes the same function."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode import decode_ref, flash_decode
+    from repro_torch.kernels.flash_decode_paged import (
+        flash_decode_paged, gather_kv_dequant, paged_decode_ref)
+    from repro_torch.kernels.flash_prefill_paged import (flash_prefill_paged,
+                                                         paged_prefill_ref)
+    from repro_torch.kernels.parity import parity_error
+    from repro_torch.kernels.softermax import (softermax_rows,
+                                               softermax_rows_ref)
+    saved = _save_counts()
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rng = np.random.default_rng(31)
+    H, D, BS, B, L = 16, 128, 16, 8, 1056
+    bf = torch.bfloat16
+    out = {}
+
+    def entry(name, err, ms, plain, nbytes, flops, lib, peak="bfloat16"):
+        t_b = nbytes / HBM_BYTES_PER_S * 1e3
+        t_o = flops / PEAK_FLOPS[peak] * 1e3
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                     "bound_ms": max(t_b, t_o),
+                     "bound_by": "bytes" if t_b >= t_o else "operations",
+                     "library_ms": lib}
+
+    # K6 at the router's rows: 8 (a decode step) and 1024 (a prefill)
+    for rows in (8, 1024):
+        x = _rand(rng, (rows, 64), 3.0).to(dev)
+        err = parity_error(softermax_rows(x), softermax_rows_ref(x))[0]
+        xs = x * math.log(2)
+        entry(f"softermax_rows ({rows}, 64)", err,
+              _time_ms(lambda: softermax_rows(x), flush),
+              _time_ms(lambda: softermax_rows_ref(x), flush),
+              2 * x.numel() * 4, 5 * x.numel(),
+              _time_ms(lambda: torch.softmax(xs, dim=-1), flush),
+              peak="float32")
+    # K1: 8 rows of 1056 cached tokens
+    W = L // BS
+    kp, vp, _, _ = _pools(rng, B * W + 1, H, BS, D, "bfloat16", dev)
+    bt = torch.from_numpy(rng.permutation(np.arange(1, B * W + 1)).reshape(
+        B, W).astype(np.int32)).to(dev)
+    ln = torch.full((B,), L, dtype=torch.int32, device=dev)
+    q = _rand(rng, (B, H, D), D ** -0.5).to(dev, bf)
+    kg, vg = (gather_kv_dequant(p, None, bt) for p in (kp, vp))
+    err = parity_error(flash_decode_paged(q, kp, vp, bt, ln),
+                       paged_decode_ref(q, kp, vp, bt, ln))[0]
+    nbytes = 2 * B * H * L * D * 2 + 2 * q.numel() * 2
+    entry("flash_decode_paged", err,
+          _time_ms(lambda: flash_decode_paged(q, kp, vp, bt, ln), flush),
+          _time_ms(lambda: paged_decode_ref(q, kp, vp, bt, ln), flush),
+          nbytes, 4 * B * H * L * D,
+          _time_ms(lambda: F.scaled_dot_product_attention(
+              q[:, :, None], kg, vg, scale=math.log(2)), flush))
+    # K5 on the same rows, contiguous
+    err = parity_error(flash_decode(q, kg, vg, ln),
+                       decode_ref(q, kg, vg, ln))[0]
+    entry("flash_decode", err,
+          _time_ms(lambda: flash_decode(q, kg, vg, ln), flush),
+          _time_ms(lambda: decode_ref(q, kg, vg, ln), flush),
+          nbytes, 4 * B * H * L * D,
+          _time_ms(lambda: F.scaled_dot_product_attention(
+              q[:, :, None], kg, vg, scale=math.log(2)), flush))
+    del kp, vp, kg, vg
+    # K2: one 256-token chunk at pos0 768
+    C, pos0 = 256, 768
+    W = (pos0 + C) // BS
+    kp, vp, _, _ = _pools(rng, W + 1, H, BS, D, "bfloat16", dev)
+    bt = torch.from_numpy(rng.permutation(np.arange(1, W + 1))
+                          .astype(np.int32)[None]).to(dev)
+    p0 = torch.tensor([pos0], dtype=torch.int32, device=dev)
+    q = _rand(rng, (1, H, C, D), D ** -0.5).to(dev, bf)
+    kg, vg = (gather_kv_dequant(p, None, bt) for p in (kp, vp))
+    mask = (torch.arange(pos0 + C, device=dev)[None, :] <=
+            pos0 + torch.arange(C, device=dev)[:, None])
+    err = parity_error(flash_prefill_paged(q, kp, vp, bt, p0),
+                       paged_prefill_ref(q, kp, vp, bt, p0))[0]
+    pairs = C * pos0 + C * (C + 1) // 2
+    entry("flash_prefill_paged", err,
+          _time_ms(lambda: flash_prefill_paged(q, kp, vp, bt, p0), flush),
+          _time_ms(lambda: paged_prefill_ref(q, kp, vp, bt, p0), flush),
+          2 * H * (pos0 + C) * D * 2 + 2 * q.numel() * 2, 4 * D * H * pairs,
+          _time_ms(lambda: F.scaled_dot_product_attention(
+              q, kg, vg, attn_mask=mask, scale=math.log(2)), flush))
+    _restore_counts(saved)
+    for name, e in out.items():
+        where = "the router's rows" if name.startswith("softermax") else \
+            "G = 1"
+        print(f"{tag} (f) {name} at {where}: {e['ms']:.4f} ms (plain "
+              f"{e['plain_ms']:.4f}, bound {e['bound_ms']:.4f} by "
+              f"{e['bound_by']}, library {e['library_ms']:.4f}; max |err| "
+              f"{e['max_abs_err']:.3g})")
+    k6 = out.pop("softermax_rows (1024, 64)")
+    out["softermax_rows"] = {**k6, "rows_8": out.pop(
+        "softermax_rows (8, 64)")}
+    return out
+
+
+def _launcher_tokens(tag, args):
+    """``repro_torch.launch.<args>`` in a child process on the card: its
+    ``seqN: [...]`` lines (the greedy tokens), or its log."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0, f"{' '.join(args)} exited {out.returncode}: "
+                               f"{out.stderr[-3000:]}")
+    text = out.stdout + out.stderr
+    seqs = [ln.split("seq", 1)[1] for ln in text.splitlines()
+            if re.search(r": seq\d+: \[", ln)]
+    print(f"{tag} (h) {' '.join(args)}: exit 0 in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return seqs, text
+
+
+def phase_moe(dev, card):
+    """30. (P) The MoE family at moonshot-v1-16b-a3b's full width (48
+    layers, d 2048, 16/16 heads of 128, 64 experts of 1408, top-6, vocab
+    163,840; bf16 weights, 56.1 GB). Returns the MoE path's readings of
+    K1, K2, K5 and K6 for the ``kernels`` line."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import TRAIN_4K, TrainConfig
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import moe
+    from repro_torch.models.lm import lm_forward
+    from repro_torch.models.registry import get_config, model_fns
+    from repro_torch.models.schema import tree_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.serve import (ContinuousEngine, ServeEngine,
+                                   check_invariants)
+    from repro_torch.train import make_train_step
+    tag = "[30]"
+    t_phase = time.perf_counter()
+    cfg = get_config(MOE_ARCH)
+    L, V = cfg.n_layers, cfg.vocab_size
+    _moe_kernel_parity(tag, dev)
+
+    # -- (b) weights ----------------------------------------------------------
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = _moe_params(cfg, dev)
+    torch.cuda.synchronize()
+    n_param = sum(t.numel() for t in tree_leaves(params))
+    print(f"{tag} (b) {MOE_ARCH} random bf16 weights, {n_param / 1e9:.2f} B "
+          f"parameters ({n_param * 2 / 1e9:.1f} GB) drawn layer slice by "
+          f"layer slice in {time.perf_counter() - t0:.2f} s; "
+          f"memory_allocated {before / 2 ** 30:.2f} -> "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+
+    # -- (c) paged serving ----------------------------------------------------
+    rng = np.random.default_rng(30)
+    lens = rng.integers(128, 1025, 8)
+    prompts = [rng.integers(1, V, n).astype(np.int32) for n in lens]
+    max_new = 32
+    base = dict(block_size=16, num_blocks=1200, max_batch=8,
+                max_len=1024 + max_new)
+    streams, drops, dec_ms = {}, {}, {}
+    k6_main, k1_main, k2_main = 0, 0, 0
+    for name, kw in (("one-shot", {}), ("chunked-256",
+                                         {"prefill_chunk": 256}),
+                     ("int8 one-shot", {"kv_dtype": "int8"})):
+        eng = ContinuousEngine(cfg, params, device=dev, **base, **kw)
+        passes = [(name, prompts)]
+        if name == "chunked-256":
+            passes.append(("prefix-resubmit", [
+                np.concatenate([p[:len(p) // 2 + 3],
+                                rng.integers(1, V, 40).astype(np.int32)])
+                for p in prompts]))
+        for label, batch in passes:
+            obs = _MoeCalls()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            hits0 = eng.metrics.prefix_hit_tokens
+            with obs:
+                res, wall, d_ms, n_dec, n_chunk = _drive(eng, batch,
+                                                         max_new)
+            k1 = _check_k1_bulk(f"{tag} {label}")
+            k2, k6 = _counts()[1], _softermax_counts()[0]
+            check(all(len(r.tokens) == max_new for r in res),
+                  f"{label}: a request did not finish")
+            check_invariants(eng.pool, eng.prefix_cache)
+            check(k1 == L * n_dec, f"{label}: K1 launches {k1} != "
+                                   f"{L} x {n_dec} decode steps")
+            check(k2 == L * n_chunk and (k2 > 0) == bool(eng.prefill_chunk),
+                  f"{label}: K2 launches {k2} != {L} x {n_chunk} chunks")
+            if k2:
+                _check_k2_tc(f"{tag} {label}")
+            check(k6 == obs.calls > 0, f"{label}: K6 launches {k6}, MoE "
+                                       f"calls {obs.calls}")
+            if label == "prefix-resubmit":
+                check(eng.metrics.prefix_hit_tokens > hits0 and
+                      eng.metrics.cow_copies > 0,
+                      "prefix-resubmit: no prefix hit / copy-on-write")
+            drops[label] = obs.dropped()
+            dec_ms[label] = float(np.mean(d_ms))
+            k6_main += k6
+            k1_main += k1
+            k2_main += k2
+            toks = sum(len(r.tokens) for r in res)
+            print(f"{tag} (c) {label}: {len(res)} requests x {max_new} "
+                  f"tokens, {toks / wall:.1f} tok/s ({wall:.2f} s incl. "
+                  f"prefill), {dec_ms[label]:.2f} ms per synced decode step "
+                  f"(n={len(d_ms)}), launches K1 {k1} (= {L} x {n_dec}, "
+                  f"bulk-copy route) K2 {k2} (= {L} x {n_chunk}"
+                  f"{', tensor cores' if k2 else ''}) K6 {k6} (= MoE calls)"
+                  f", dropped assignments {drops[label]}, prefix hits "
+                  f"{eng.metrics.prefix_hit_tokens - hits0} tokens, peak "
+                  f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+                  f" GiB")
+            if label in ("one-shot", "chunked-256"):
+                streams[label] = np.array([r.tokens for r in res])
+        del eng
+        torch.cuda.empty_cache()
+    share, n_eq = _stream_share(streams["one-shot"], streams["chunked-256"])
+    print(f"{tag} (e) chunked-256 vs one-shot (other token sets a MoE call: "
+          f"printed, not gated): {share:.3f} of greedy tokens equal, "
+          f"{n_eq}/8 streams equal; dropped assignments one-shot "
+          f"{drops['one-shot']}, chunked-256 {drops['chunked-256']}")
+
+    # -- (f) where a decode step's time goes ---------------------------------
+    eng = ContinuousEngine(cfg, params, device=dev, **base)
+    for p in prompts:
+        eng.submit(p, max_new)
+    while eng.sched.waiting or eng.metrics.decode_steps < 1 or any(
+            r.state == "prefill" for r in eng.sched.running):
+        eng.step()
+    print(f"{tag} (f) " + step_profile(eng.step, 5, "paged decode, batch 8",
+                                       watch=("paged_decode",
+                                              "softermax_rows")))
+    while eng.sched.has_work():
+        eng.step()
+    eng.drain()
+    del eng
+    torch.cuda.empty_cache()
+
+    # -- (d) static serving, 8 x 1024 tokens, and the paged engine on them ----
+    P = 1024
+    fixed = rng.integers(1, V, (8, P)).astype(np.int32)
+    kw = dict(block_size=16, num_blocks=8 * ((P + max_new) // 16 + 1) + 1,
+              max_batch=8, max_len=P + max_new)
+    eng = ServeEngine(cfg, params, max_len=P + max_new, device=dev)
+    rec = _StaticRecorder(eng)
+    obs = _MoeCalls()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with obs:
+        res = eng.generate(fixed, max_new)
+    wall = time.perf_counter() - t0
+    rec.close()
+    k5 = _check_k5_bulk(f"{tag} static")
+    k6 = _softermax_counts()[0]
+    check(k5 == L * (max_new - 1), f"static: K5 launches {k5}")
+    check(k6 == obs.calls == L * max_new, f"static: K6 launches {k6}, MoE "
+                                          f"calls {obs.calls}")
+    check(_counts() == (0, 0), "static: a paged kernel launched")
+    check(((res.tokens >= 0) & (res.tokens < V)).all() and
+          all(torch.isfinite(lg).all().item() for lg in rec.logits),
+          "static: tokens out of the vocabulary or non-finite logits")
+    k5_main, k6_main = k5, k6_main + k6
+    static_drops = obs.dropped()
+    print(f"{tag} (d) static engine, 8 x {P} tokens, {max_new} new: "
+          f"{8 * max_new / wall:.1f} tok/s ({wall:.2f} s incl. prefill "
+          f"{rec.prefill_ms:.0f} ms), {np.mean(rec.decode_ms):.2f} ms per "
+          f"synced decode step, K5 {k5} (= {L} x {max_new - 1}, bulk-copy "
+          f"route), K6 {k6} (= MoE calls), dropped assignments "
+          f"{static_drops}")
+    lg, cache = eng._prefill(torch.as_tensor(fixed, device=dev))
+    state = [eng._sample(lg, None, 0.0), cache]
+
+    def step():
+        lg, state[1] = eng._decode(state[0], state[1])
+        state[0] = eng._sample(lg, None, 0.0)
+
+    print(f"{tag} (f) static " + step_profile(step, 5, "decode, batch 8"))
+    del eng, cache, state, rec
+    torch.cuda.empty_cache()
+    eng = ContinuousEngine(cfg, params, device=dev, **kw)
+    obs = _MoeCalls()
+    with obs:
+        handles = [eng.submit(p, max_new) for p in fixed]
+        got = eng.run()
+    paged8 = np.array([got[h.req_id].tokens for h in handles])
+    share, n_eq = _stream_share(res.tokens, paged8)
+    print(f"{tag} (e) static B = 8 vs paged one-shot on the same prompts "
+          f"(T = 8 x {P} against {P} a call: printed, not gated): "
+          f"{share:.3f} of greedy tokens equal, {n_eq}/8 streams equal; "
+          f"dropped assignments static {static_drops}, paged "
+          f"{obs.dropped()}")
+    del eng, got
+    torch.cuda.empty_cache()
+
+    # -- (e) one prompt alone: the same token set in every MoE call -----------
+    one = fixed[:1]
+    runs = {}
+    eng = ServeEngine(cfg, params, max_len=P + max_new, device=dev)
+    rec = _StaticRecorder(eng)
+    obs = _MoeCalls(keep_routes=True)
+    with obs:
+        res1 = eng.generate(one, max_new)
+    rec.close()
+    runs["static"] = (list(res1.tokens[0]), [lg for lg in rec.logits],
+                      obs.routes)
+    del eng, rec
+    eng = ContinuousEngine(cfg, params, device=dev, **{**kw,
+                                                      "max_batch": 1})
+    rec = _record_samplings(eng)
+    obs = _MoeCalls(keep_routes=True)
+    with obs:
+        h = eng.submit(one[0], max_new)
+        got = eng.run()
+    check(len(rec) == max_new, f"paged single prompt: {len(rec)} samplings")
+    runs["paged"] = (got[h.req_id].tokens, rec, obs.routes)
+    del eng, rec
+    line = _moe_stream_audit(
+        tag, "paged one-shot vs static, one prompt of 1024 tokens",
+        runs["static"][0], runs["paged"][0], runs["static"][1],
+        runs["paged"][1], runs["static"][2], runs["paged"][2], L, V)
+    print(f"{tag} (e) {line} (gated)")
+    with torch.no_grad():
+        fwd = lm_forward(params, torch.as_tensor(one, device=dev), cfg)[0]
+    ref = fwd[0, -1, :V].float()
+    got = runs["paged"][1][0][0, :V].float()
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    check(err <= BF16_ATOL * scale, f"paged prefill logits vs lm_forward: "
+                                    f"{err} > {BF16_ATOL} x {scale}")
+    print(f"{tag} (e) paged one-shot prefill logits vs lm_forward of the "
+          f"same {P} tokens: max |diff| {err:.4g} (gate {BF16_ATOL} x max "
+          f"|logit| {scale:.4g}), greedy token {int(got.argmax())} / "
+          f"{int(ref.argmax())}")
+    del runs, fwd, ref, got, obs
+    torch.cuda.empty_cache()
+    times = _moe_kernel_times(tag, dev)
+    # the recorders' closures tie engines (views of the weights) in cycles
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_serve = time.perf_counter() - t_phase
+    print(f"{tag} (g) memory_allocated after the serving weights are "
+          f"freed: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+
+    # -- (g) training, 2 MoE layers at full width -----------------------------
+    tcfg = cfg.replace(n_layers=MOE_TRAIN_LAYERS, attention_impl="flash")
+    Lt = tcfg.n_layers
+    t0 = time.perf_counter()
+    tparams = _true_fan_in(model_fns(tcfg).init(
+        torch.Generator(device=dev).manual_seed(0)))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    tc = TrainConfig(total_steps=3, warmup_steps=1, learning_rate=3e-4)
+    step_fn = make_train_step(model_fns(tcfg).loss, tc)
+    opt = adamw.init_state(tparams)
+    S = TRAIN_4K.seq_len
+    data = SyntheticLMData(V, S, 1, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    for s in range(3):
+        c0 = _all_counts()
+        tc0 = _flash_tc_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tparams, opt, m = step_fn(tparams, opt, next(data))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        c1 = _all_counts()
+        k3, k4, k6 = (c1[i] - c0[i] for i in (2, 3, 5))
+        tc1 = _flash_tc_counts()
+        m = {k: float(v) for k, v in m.items()}
+        check(all(np.isfinite(m[k]) for k in ("loss", "ce", "aux",
+                                              "grad_norm")) and m["aux"] > 0,
+              f"MoE training step {s}: {m}")
+        check((k3, k4, k6) == (2 * Lt, 2 * Lt, 2 * Lt),
+              f"MoE training step {s}: launches K3 {k3} K4 {k4} K6 {k6}, "
+              f"want {2 * Lt} each")
+        check((tc1[0] - tc0[0], tc1[1] - tc0[1]) == (k3, k4),
+              f"MoE training step {s}: K3/K4 not all on the tensor cores")
+        print(f"{tag} (g) train step {s}: loss {m['loss']:.5f} ce "
+              f"{m['ce']:.5f} aux {m['aux']:.6f} grad norm "
+              f"{m['grad_norm']:.4f}, {dt:.3f} s ({S / dt:.0f} "
+              f"tokens/s), launches K3 {k3} K4 {k4} (tensor cores) K6 {k6}")
+    print(f"{tag} (g) {MOE_ARCH} at full width, depth cut to {Lt} MoE "
+          f"layers, seq {S}, batch 1 (C = {moe.capacity(S, tcfg)}): fp32 "
+          f"master weights "
+          f"({sum(t.numel() for t in tree_leaves(tparams)) / 1e9:.2f} B) in "
+          f"{t_init:.2f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    del tparams, opt, step_fn
+    torch.cuda.empty_cache()
+
+    # -- (h) the launchers, reduced -------------------------------------------
+    outs = {}
+    for engine in ("static", "paged"):
+        outs[engine] = _launcher_tokens(tag, [
+            "repro_torch.launch.serve", "--arch", MOE_ARCH, "--reduced",
+            "--engine", engine])[0]
+    check(outs["static"] and outs["static"] == outs["paged"],
+          f"launch.serve static and paged greedy tokens differ: {outs}")
+    print(f"{tag} (h) launch.serve --arch {MOE_ARCH} --reduced: static and "
+          f"paged print the same greedy tokens ({len(outs['static'])} "
+          f"sequences)")
+    _, text = _launcher_tokens(tag, ["repro_torch.launch.train", "--arch",
+                                     MOE_ARCH, "--reduced", "--steps", "3"])
+    check(len(re.findall(r"step \d+ loss", text)) == 3 and
+          "done on cuda" in text, f"launch.train: {text[-2000:]}")
+    print(f"{tag} (h) launch.train --arch {MOE_ARCH} --reduced --steps 3: "
+          + [ln for ln in text.splitlines() if "done on" in ln][0].strip())
+    print(f"{tag} phase time {time.perf_counter() - t_phase:.1f} s "
+          f"(serving and kernels {t_serve:.1f}); {card}")
+    for name, launches in (("flash_decode_paged", k1_main),
+                           ("flash_prefill_paged", k2_main),
+                           ("flash_decode", k5_main)):
+        times[name]["launches"] = launches
+    times["softermax_rows"]["launches"] = k6_main
+    return times
+
+
 def _row(name, src, replaces, launches, per_step, err, ms, plain, nbytes,
          flops, library=None, peak="bfloat16"):
     """One kernel's entry of the ``kernels`` line; ``peak`` names the rate
@@ -4204,8 +4947,11 @@ def main() -> int:
     phase_telemetry(dev, card)
     phase_resilience(dev, card)
     phase_fleet(dev, card)
+    moe_path = phase_moe(dev, card)
     for k in kernels:
         k["card"] = card
+        if k["name"] in moe_path:
+            k["moe"] = moe_path[k["name"]]
         lib = "" if k["library_ms"] is None else \
             f", library {k['library_ms']:.4f} ms"
         if "earlier_ms" in k:

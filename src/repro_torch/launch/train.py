@@ -1,4 +1,4 @@
-"""Training launcher: the dense LM through the fault-tolerant loop
+"""Training launcher: the dense or MoE LM through the fault-tolerant loop
 (checkpoint/restart, straggler monitor) on one device.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \

@@ -1,9 +1,14 @@
-"""Decoder-only LM (dense family): parameters, forward and loss, and the
-static engine's prefill and decode step over a contiguous cache.
+"""Decoder-only LM (the dense and MoE GQA families): parameters, forward
+and loss, and the static engine's prefill and decode step over a
+contiguous cache.
 
 ``lm_schema`` has the JAX package's tree structure and shapes, with the
 layer stack on a leading ``(n_layers, …)`` axis; the serving steps in
 ``serve/paged_step.py`` loop over that axis eagerly.
+
+The MoE family's FFN is ``models/moe.py::moe_apply`` (its aux loss is
+summed over the layers); ``cfg.moe.first_dense`` leading layers keep a
+dense FFN in their own stack ``head_blocks``, as in the reference.
 
 ``lm_forward`` / ``lm_loss`` are the training entry points. Their layer
 stack may be the stacked tree or a per-layer list (``layer_params``): the
@@ -27,34 +32,62 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import (attention_apply, attention_decode,
                                          attention_schema, quantize_kv)
 from repro_torch.models.layers import (cross_entropy_loss, embed,
                                        embedding_schema, logits, mlp,
                                        mlp_schema, rmsnorm, rmsnorm_schema,
                                        rope_cos_sin)
-from repro_torch.models.schema import layer_params, stack_schema, tree_map
+from repro_torch.models.schema import (layer_params, stack_schema,
+                                       tree_leaves, tree_map)
+
+STACKS = ("head_blocks", "blocks")      # layer stacks, in forward order
 
 
-def block_schema(cfg: ModelConfig):
-    if cfg.family != "dense" or cfg.mla is not None or cfg.ssm is not None:
+def _ffn_schema(cfg: ModelConfig, dense: bool = False):
+    if cfg.family == "moe" and not dense:
+        return moe_mod.moe_schema(cfg)
+    d_ff = cfg.moe.d_ff_dense if (dense and cfg.moe.d_ff_dense) else cfg.d_ff
+    return mlp_schema(cfg.d_model, d_ff, gated=cfg.activation != "relu2")
+
+
+def block_schema(cfg: ModelConfig, dense_ffn: bool = False):
+    if cfg.family not in ("dense", "moe") or cfg.mla is not None or \
+            cfg.ssm is not None:
         raise NotImplementedError(
-            f"family {cfg.family!r}: only the dense GQA family is ported")
+            f"family {cfg.family!r}: only the dense and MoE GQA families "
+            "are ported (ROADMAP Queue 1 item 5)")
     return {
         "ln1": rmsnorm_schema(cfg.d_model),
         "mixer": attention_schema(cfg),
         "ln2": rmsnorm_schema(cfg.d_model),
-        "ffn": mlp_schema(cfg.d_model, cfg.d_ff,
-                          gated=cfg.activation != "relu2"),
+        "ffn": _ffn_schema(cfg, dense=dense_ffn),
     }
+
+
+def _n_head_blocks(cfg: ModelConfig) -> int:
+    return cfg.moe.first_dense if cfg.family == "moe" else 0
 
 
 def lm_schema(cfg: ModelConfig) -> Dict[str, Any]:
-    return {
+    n_head = _n_head_blocks(cfg)
+    s = {
         "embed": embedding_schema(cfg),
         "final_norm": rmsnorm_schema(cfg.d_model),
-        "blocks": stack_schema(block_schema(cfg), cfg.n_layers),
+        "blocks": stack_schema(block_schema(cfg), cfg.n_layers - n_head),
     }
+    if n_head:
+        s["head_blocks"] = stack_schema(block_schema(cfg, dense_ffn=True),
+                                        n_head)
+    return s
+
+
+def _n_stacked(blocks) -> int:
+    """Layers in a stack: a per-layer list or a stacked tree."""
+    if isinstance(blocks, list):
+        return len(blocks)
+    return tree_leaves(blocks)[0].shape[0]
 
 
 def cast_matrix_params(params, dtype: torch.dtype):
@@ -75,51 +108,75 @@ def maybe_cast_params(params, cfg: ModelConfig):
     if not cfg.opt_bf16_params:
         return params
     dt = cfg.compute_dtype_
-    blocks = params["blocks"]
-    if not isinstance(blocks, list):
+    if not isinstance(params["blocks"], list):
         return cast_matrix_params(params, dt)
     out = cast_matrix_params({k: v for k, v in params.items()
-                              if k != "blocks"}, dt)
-    out["blocks"] = [tree_map(
-        lambda a: a.to(dt) if a.is_floating_point() else a, bp)
-        for bp in blocks]
+                              if k not in STACKS}, dt)
+    for name in STACKS:
+        if name in params:
+            out[name] = [tree_map(
+                lambda a: a.to(dt) if a.is_floating_point() else a, bp)
+                for bp in params[name]]
     return out
 
 
-def _block_apply(bp, x, cfg: ModelConfig, positions):
-    """One dense layer: pre-norm attention and MLP with residuals."""
+def ffn_apply(bp, h2, cfg: ModelConfig, dense_ffn: bool = False):
+    """A layer's FFN on its normed input: (B, S, d), or one token per row
+    (B, d), which the MoE layer sees as (B, 1, d) as the reference passes
+    it. Returns (output, the MoE aux loss, or None for a dense FFN)."""
+    if cfg.family != "moe" or dense_ffn:
+        return mlp(bp["ffn"], h2, cfg.activation), None
+    if h2.dim() == 2:
+        y, aux = moe_mod.moe_apply(bp["ffn"], h2[:, None, :], cfg)
+        return y[:, 0], aux
+    return moe_mod.moe_apply(bp["ffn"], h2, cfg)
+
+
+def _block_apply(bp, x, cfg: ModelConfig, positions, dense_ffn=False):
+    """One layer: pre-norm attention and FFN with residuals. Returns (x,
+    the MoE aux loss or None)."""
     h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
     x = x + attention_apply(bp["mixer"], h, cfg, positions=positions,
                             causal=cfg.causal, window=cfg.window)
-    h2 = rmsnorm(bp["ln2"], x, cfg.norm_eps)
-    return x + mlp(bp["ffn"], h2, cfg.activation)
+    f, aux = ffn_apply(bp, rmsnorm(bp["ln2"], x, cfg.norm_eps), cfg,
+                       dense_ffn)
+    return x + f, aux
 
 
-def _scan_blocks(blocks, x, cfg: ModelConfig, positions):
-    """The layer loop; each layer checkpointed under ``remat="full"``."""
-    for layer in range(cfg.n_layers):
+def _scan_blocks(blocks, x, cfg: ModelConfig, positions, dense_ffn=False):
+    """The layer loop over one stack, each layer checkpointed under
+    ``remat="full"``. Returns (x, the stack's summed aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in range(_n_stacked(blocks)):
         bp = layer_params(blocks, layer)
         if cfg.remat == "full":
-            x = checkpoint(_block_apply, bp, x, cfg, positions,
-                           use_reentrant=False)
+            x, a = checkpoint(_block_apply, bp, x, cfg, positions,
+                              dense_ffn, use_reentrant=False)
         else:
-            x = _block_apply(bp, x, cfg, positions)
-    return x
+            x, a = _block_apply(bp, x, cfg, positions, dense_ffn)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def lm_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
                positions=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) → (logits (B, S, V_padded) fp32, aux loss scalar; 0
-    for the dense family)."""
+    """tokens (B, S) → (logits (B, S, V_padded) fp32, aux loss scalar: the
+    MoE layers' summed aux, 0 for the dense family)."""
     B, S = tokens.shape
     params = maybe_cast_params(params, cfg)
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device).expand(B, S)
     x = embed(params["embed"], tokens, cfg)
-    x = _scan_blocks(params["blocks"], x, cfg, positions)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    if "head_blocks" in params:
+        x, a = _scan_blocks(params["head_blocks"], x, cfg, positions,
+                            dense_ffn=True)
+        aux = aux + a
+    x, a = _scan_blocks(params["blocks"], x, cfg, positions)
+    aux = aux + a
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return logits(params["embed"], x, cfg), aux
 
 
@@ -140,16 +197,19 @@ def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 def _check_dense_cache(cfg: ModelConfig) -> None:
     """The contiguous cache of the static engine is ported for the dense
-    GQA family; the others come with their model modules (ROADMAP Queue
-    1: MoE item 4, the other families item 5)."""
-    if cfg.family == "moe":
+    and MoE GQA families; the others come with their model modules
+    (ROADMAP Queue 1 item 5). Leading dense blocks (``first_dense``) are
+    refused too: the reference's cache for them carries MLA latents
+    only."""
+    if cfg.family not in ("dense", "moe") or cfg.mla is not None or \
+            cfg.ssm is not None:
         raise NotImplementedError(
-            "family 'moe': the static engine needs moe_apply, not yet "
-            "ported (ROADMAP Queue 1 item 4)")
-    if cfg.family != "dense" or cfg.mla is not None or cfg.ssm is not None:
+            f"family {cfg.family!r}: only the dense and MoE GQA families' "
+            "decode cache is ported (ROADMAP Queue 1 item 5)")
+    if _n_head_blocks(cfg):
         raise NotImplementedError(
-            f"family {cfg.family!r}: only the dense GQA family's decode "
-            "cache is ported (ROADMAP Queue 1 item 5)")
+            "first_dense head blocks: their decode cache comes with MLA "
+            "(ROADMAP Queue 1 item 5)")
 
 
 def cache_spec(cfg: ModelConfig, batch: int, max_len: int):
@@ -190,16 +250,12 @@ def _mixer_decode(bp, x1, cfg: ModelConfig, layer_cache, cache_len,
     return y1
 
 
-def _ffn_decode(bp, x1, cfg: ModelConfig):
-    return mlp(bp["ffn"], x1, cfg.activation)
-
-
 def _block_decode(bp, x1, cfg: ModelConfig, layer_cache, cache_len,
                   rope_cs):
     h = rmsnorm(bp["ln1"], x1, cfg.norm_eps)
     x1 = x1 + _mixer_decode(bp, h, cfg, layer_cache, cache_len, rope_cs)
     h2 = rmsnorm(bp["ln2"], x1, cfg.norm_eps)
-    return x1 + _ffn_decode(bp, h2, cfg)
+    return x1 + ffn_apply(bp, h2, cfg)[0]
 
 
 def lm_decode_step(params, tokens1: torch.Tensor, cache, cfg: ModelConfig):
@@ -262,8 +318,7 @@ def lm_prefill(params, tokens: torch.Tensor, cfg: ModelConfig,
                 cache[name + "_scale"][layer, :, :, :n] = sc
             cache[name][layer, :, :, :n] = t
         x = x + y
-        h2 = rmsnorm(bp["ln2"], x, cfg.norm_eps)
-        x = x + mlp(bp["ffn"], h2, cfg.activation)
+        x = x + ffn_apply(bp, rmsnorm(bp["ln2"], x, cfg.norm_eps), cfg)[0]
     cache["len"].fill_(S)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return logits(params["embed"], x[:, -1], cfg), cache

@@ -1,6 +1,6 @@
 """Architecture registry: ``--arch <id>`` → config; reduced CPU configs;
 parameter init and the uniform model interface (``model_fns``) for the
-dense LM."""
+dense and MoE LMs."""
 from __future__ import annotations
 
 import dataclasses
@@ -83,10 +83,12 @@ def init_lm_params(cfg: ModelConfig, generator: torch.Generator):
 
 
 def model_fns(cfg: ModelConfig) -> SimpleNamespace:
-    """The dense family's uniform interface, as in the JAX registry:
-    ``schema``, ``init(generator)`` (parameters on ``generator.device``),
-    ``loss(params, batch)`` (``lm_loss``'s own z-loss weight, as the
-    reference's registry keeps it), and the static engine's
+    """The dense and MoE families' uniform interface, as in the JAX
+    registry: ``schema``, ``init(generator)`` (parameters on
+    ``generator.device``), ``loss(params, batch)`` (``lm_loss``: cross
+    entropy with its own z-loss weight, as the reference's registry keeps
+    it, plus the MoE layers' aux loss; metrics ``{"ce", "aux"}``), and the
+    static engine's
     ``prefill(params, batch, max_len)``, ``decode_step(params, tokens1,
     cache)`` and ``cache_spec(batch, max_len)``."""
     schema = lm_schema(cfg)

@@ -1,5 +1,5 @@
 """Serving engines: static-slot batching over a contiguous KV cache, and
-continuous batching over the paged KV pool (dense GQA LMs).
+continuous batching over the paged KV pool (dense and MoE GQA LMs).
 
 ``ServeEngine`` is the JAX package's static-slot engine in PyTorch: one
 prefill of the whole batch into a contiguous ``(B, max_len)`` cache

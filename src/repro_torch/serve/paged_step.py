@@ -1,4 +1,4 @@
-"""Model step functions over the paged KV cache (dense GQA LMs).
+"""Model step functions over the paged KV cache (dense and MoE GQA LMs).
 
 The JAX package's ``repro.serve.paged_step`` in eager PyTorch. JAX jits
 each step, scans the layer stack and returns new pool arrays; the port
@@ -29,6 +29,11 @@ runs eagerly, loops over the layers, and **updates the pools in place**
 On CUDA tensors both attention calls launch the Hopper kernels; on CPU
 tensors they take the plain PyTorch versions.
 
+**MoE.** Each step's FFN goes through ``models/moe.py::moe_apply`` on the
+shape the reference passes: (B, Sp, d) in the prefills, padding rows
+included (they take expert capacity), and (B, 1, d) in the decode step,
+inactive rows included.
+
 **Int8 pools.** Writers quantize rows per (head, token) when they write;
 readers dequantize at gather, and attention accumulates in fp32.
 
@@ -50,14 +55,15 @@ from repro_torch.kernels.flash_decode_paged import (flash_decode_paged_op,
                                                     gather_kv_dequant)
 from repro_torch.kernels.flash_prefill_paged import flash_prefill_paged_op
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.layers import (apply_rope, embed, logits, mlp,
-                                       rmsnorm, rope_cos_sin)
+from repro_torch.models.layers import (apply_rope, embed, logits, rmsnorm,
+                                       rope_cos_sin)
+from repro_torch.models.lm import ffn_apply
 from repro_torch.models.schema import layer_params
 
 
 def check_paged_support(cfg: ModelConfig) -> None:
-    """Paged serving covers the dense GQA family. The MoE family is served
-    by the JAX package and comes to the port with ``moe_apply``."""
+    """Paged serving covers the GQA attention families (dense and MoE);
+    everything else stays on the static engine."""
     if cfg.family not in ("dense", "moe"):
         raise ValueError(f"paged serving: unsupported family {cfg.family!r}")
     if cfg.mla is not None or cfg.ssm is not None:
@@ -67,9 +73,6 @@ def check_paged_support(cfg: ModelConfig) -> None:
                          "not supported")
     if cfg.window:
         raise ValueError("paged serving: sliding-window archs not supported")
-    if cfg.family == "moe":
-        raise NotImplementedError("paged serving of the moe family needs "
-                                  "moe_apply, not yet ported")
 
 
 def table_width_bucket(need: int, *, nb_max: Optional[int] = None,
@@ -97,8 +100,9 @@ def table_width_bucket(need: int, *, nb_max: Optional[int] = None,
 
 
 def _ffn(bp, x, cfg: ModelConfig):
-    return mlp(bp["ffn"], rmsnorm(bp["ln2"], x, cfg.norm_eps),
-               cfg.activation)
+    """The FFN of a layer on its residual stream x: (B, S, d) in the
+    prefills, (B, d) in the decode step."""
+    return ffn_apply(bp, rmsnorm(bp["ln2"], x, cfg.norm_eps), cfg)[0]
 
 
 def _head(params, x, last, cfg: ModelConfig):
@@ -217,10 +221,6 @@ def paged_prefill_audit(params, tokens: torch.Tensor,
     tokens (B, S) unpadded, last_pos (B,). Returns ``(lg_ref, lg_q,
     stats)``: logits (B, V) of both branches and a dict of scalar tensors
     (summed or maxed over layers), all on the tokens' device."""
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            "paged_prefill_audit of the moe family needs moe_apply, not "
-            "yet ported (ROADMAP Queue 1 item 4)")
     B, Sp = tokens.shape
     _, intmax = attn_mod._mode(cfg)
     positions = torch.arange(Sp, dtype=torch.int32,

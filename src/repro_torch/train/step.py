@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import TrainConfig
+from repro_torch.models.lm import STACKS
 from repro_torch.models.schema import tree_leaves, tree_map
 from repro_torch.optim import adamw
 
@@ -49,15 +50,17 @@ def _leaf(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 def _grad_leaves(params, grads):
     """Autograd leaves sharing storage with ``params``, their ``.grad`` the
-    matching views of ``grads``; the ``blocks`` stack becomes a per-layer
-    list (what ``models.schema.layer_params`` reads)."""
+    matching views of ``grads``; each layer stack (``blocks`` and the MoE
+    family's ``head_blocks``) becomes a per-layer list (what
+    ``models.schema.layer_params`` reads)."""
     out = {k: _map2(_leaf, params[k], grads[k]) for k in params
-           if k != "blocks"}
-    if "blocks" in params:
-        n = tree_leaves(params["blocks"])[0].shape[0]
-        out["blocks"] = [
-            _map2(lambda p, g, i=i: _leaf(p[i], g[i]), params["blocks"],
-                  grads["blocks"]) for i in range(n)]
+           if k not in STACKS}
+    for name in STACKS:
+        if name in params:
+            n = tree_leaves(params[name])[0].shape[0]
+            out[name] = [
+                _map2(lambda p, g, i=i: _leaf(p[i], g[i]), params[name],
+                      grads[name]) for i in range(n)]
     return out
 
 

@@ -33,6 +33,10 @@ its split version with the same lane layout
 and snapshot tests hold the serving layers on the card EXACTLY: a threaded
 fleet's streams and journal equal a one-thread fleet's, and a restored
 engine continues a snapshotted one token for token, its pool bits equal.
+The MoE tests hold reduced moonshot-v1-16b-a3b's MoE layer (K6 on the
+router) and its paged engine on the card to their CPU runs: the routing
+and the streams equal, except where a selection flips at a router near
+tie (k-th/(k+1)-th probability gap within 1e-6).
 """
 import numpy as np
 import pytest
@@ -1171,3 +1175,121 @@ def test_snapshot_roundtrip_on_the_card(cuda_device, kv, tmp_path):
 
     assert streams(fresh.run()) == streams(eng.run())
     assert leaked_blocks(fresh.pool, fresh.prefix_cache) == 0
+
+
+def _moe_layer(cfg, seed=0):
+    """Layer 0's MoE parameters of a random init."""
+    from repro_torch.models.registry import init_lm_params
+    params = init_lm_params(cfg, torch.Generator().manual_seed(seed))
+    return {k: v[0] for k, v in params["blocks"]["ffn"].items()}
+
+
+def _record_routes(monkeypatch):
+    """Every MoE call's routing, in call order: ``moe.route`` (which each
+    call looks up at call time) wrapped for the test."""
+    from repro_torch.models import moe
+    rec, route = [], moe.route
+
+    def recording(*args):
+        rec.append(route(*args))
+        return rec[-1]
+
+    monkeypatch.setattr(moe, "route", recording)
+    return rec
+
+
+def _routing_flips(cpu, card, k):
+    """Rows whose selected experts differ between two routings of the same
+    tokens, each with the gap between the k-th and (k+1)-th router
+    probability on the CPU (how near a tie the selection was there)."""
+    srt = torch.sort(cpu.probs, dim=-1, descending=True).values
+    gap = (srt[:, k - 1] - srt[:, k])
+    rows = (cpu.sel != card.sel.cpu()).any(-1).nonzero()[:, 0]
+    return [(int(r), float(gap[r])) for r in rows]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_apply_on_the_card(cuda_device, dtype, monkeypatch):
+    """Reduced moonshot-v1-16b-a3b's MoE layer on the card (K6 on the
+    router: one launch a call) against its CPU run on the same inputs: the
+    routing equal except rows at a near tie (k-th/(k+1)-th probability gap
+    within 1e-6), y within 1e-5 (float32) / 2e-2 (bfloat16) of its largest
+    entry, aux 1e-5 relative; float32 gradients of x and the four weights
+    within 1e-4 of each one's largest entry."""
+    from repro_torch.models import moe
+    from repro_torch.models.registry import get_config, reduce_config
+    cfg = reduce_config(get_config("moonshot-v1-16b-a3b"))
+    p = _moe_layer(cfg)
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(2, 40, cfg.d_model)).astype(np.float32)).to(dt)
+    out = {}
+    rec = _record_routes(monkeypatch)
+    for d in ("cpu", cuda_device):
+        rec.clear()
+        before = softermax_rows.launches
+        leaves = {n: w.to(d, copy=True).requires_grad_()
+                  for n, w in p.items()}
+        xd = x.to(d, copy=True).requires_grad_()
+        y, aux = moe.moe_apply(leaves, xd, cfg)
+        assert softermax_rows.launches - before == (d != "cpu")
+        if dtype == "float32":
+            (y.float().sum() + aux).backward()
+        out[str(d)] = (rec[0], y.detach().cpu().float(), aux.item(),
+                       {n: t.grad for n, t in [("x", xd), *leaves.items()]})
+    (r_c, y_c, a_c, g_c), (r_g, y_g, a_g, g_g) = out["cpu"], \
+        out[str(cuda_device)]
+    for row, gap in _routing_flips(r_c, r_g, cfg.moe.top_k):
+        assert gap <= 1e-6, (row, gap)
+    flipped = {r for r, _ in _routing_flips(r_c, r_g, cfg.moe.top_k)}
+    # tokens whose selection flipped carry another expert's output
+    ok = torch.tensor([t not in flipped for t in range(r_c.sel.shape[0])])
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    yc = y_c.reshape(-1, cfg.d_model)[ok]
+    yg = y_g.reshape(-1, cfg.d_model)[ok]
+    assert (yg - yc).abs().max() <= tol * yc.abs().max()
+    assert a_g == pytest.approx(a_c, rel=1e-5)
+    if dtype == "float32" and not flipped:
+        for n, want in g_c.items():
+            err = (g_g[n].cpu() - want).abs().max()
+            assert err <= 1e-4 * want.abs().max(), (n, err)
+
+
+def test_moe_paged_engine_on_the_card(cuda_device, monkeypatch):
+    """Reduced moonshot-v1-16b-a3b in float32: the paged engine on the card
+    (K1 decode, K6 router) emits the greedy streams of the same engine on
+    the CPU, or, where a stream differs, the first MoE call whose routing
+    differs shows a near tie on the CPU (k-th/(k+1)-th router probability
+    gap within 1e-6 on every differing row, printed); one K6 launch per
+    MoE call."""
+    from repro_torch.models.registry import get_config, reduce_config
+    from repro_torch.models.registry import init_lm_params
+    from repro_torch.serve import ContinuousEngine
+    cfg = reduce_config(get_config("moonshot-v1-16b-a3b"))
+    params = init_lm_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (13, 29, 20)]
+    runs = {}
+    rec = _record_routes(monkeypatch)
+    for d in ("cpu", cuda_device):
+        n0 = len(rec)
+        eng = ContinuousEngine(cfg, params, block_size=8, num_blocks=32,
+                               max_batch=4, max_len=48, prefill_chunk=8,
+                               device=d)
+        before = softermax_rows.launches
+        handles = [eng.submit(p, 10) for p in prompts]
+        res = eng.run()
+        assert softermax_rows.launches - before == \
+            (0 if d == "cpu" else len(rec) - n0)
+        runs[str(d)] = ([res[h.req_id].tokens for h in handles], rec[n0:])
+    (s_c, rec_c), (s_g, rec_g) = runs["cpu"], runs[str(cuda_device)]
+    if s_c == s_g:
+        return
+    for a, b in zip(rec_c, rec_g):
+        flips = _routing_flips(a, b, cfg.moe.top_k)
+        if flips:
+            print(f"first routing difference: (row, gap) {flips}")
+            assert all(gap <= 1e-6 for _, gap in flips), flips
+            return
+    pytest.fail("streams differ with the same routing everywhere")

@@ -313,8 +313,7 @@ def test_cache_spec_and_model_fns_match_jax(model):
                                                    "cache_spec"))
 
 
-@pytest.mark.parametrize("arch", ["hymba-1.5b", "rwkv6-7b",
-                                  "moonshot-v1-16b-a3b"])
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "rwkv6-7b"])
 def test_other_families_raise_not_implemented(arch):
     cfg = reduce_config(get_config(arch))
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):

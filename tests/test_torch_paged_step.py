@@ -1,7 +1,8 @@
 """Each step function of the port's ``serve/paged_step`` against the JAX
 package's, on the same weights (the JAX init bridged through numpy), the
-same pools and the same tables, for reduced llama3.2-3b and reduced
-qwen3-4b (the QK-norm branch).
+same pools and the same tables, for reduced llama3.2-3b, reduced
+qwen3-4b (the QK-norm branch) and reduced moonshot-v1-16b-a3b (the MoE
+FFN on each step's rows, padding rows included).
 
 Tolerances: logits ``atol`` 1e-4 (float32 through several layers, sums in
 another order); computed K/V rows and float32 pools after a write within
@@ -29,7 +30,8 @@ from repro_torch.serve import paged_step as tstep
 BS, N = 8, 12
 
 
-@pytest.fixture(scope="module", params=["llama3.2-3b", "qwen3-4b"])
+@pytest.fixture(scope="module", params=["llama3.2-3b", "qwen3-4b",
+                                        "moonshot-v1-16b-a3b"])
 def model(request):
     jcfg = jax_reduce_config(jax_get_config(request.param))
     tcfg = reduce_config(get_config(request.param))
@@ -216,10 +218,10 @@ def test_table_width_bucket_matches_jax():
 
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen3-4b", "granite-3-8b",
                                   "hymba-1.5b", "rwkv6-7b", "whisper-base",
-                                  "deepseek-v2-236b"])
+                                  "deepseek-v2-236b", "moonshot-v1-16b-a3b"])
 def test_paged_support_matches_jax(arch):
-    """The port serves what the JAX package serves, except the MoE family,
-    which it refuses until ``moe_apply`` is ported."""
+    """The port serves what the JAX package serves and refuses the rest
+    with the same ``ValueError``."""
     jcfg = jax_reduce_config(jax_get_config(arch))
     tcfg = reduce_config(get_config(arch))
     try:
@@ -232,9 +234,3 @@ def test_paged_support_matches_jax(arch):
     else:
         with pytest.raises(ValueError):
             tstep.check_paged_support(tcfg)
-
-
-def test_paged_support_refuses_moe_until_ported():
-    cfg = reduce_config(get_config("moonshot-v1-16b-a3b"))
-    with pytest.raises(NotImplementedError, match="moe_apply"):
-        tstep.check_paged_support(cfg)

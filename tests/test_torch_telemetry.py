@@ -431,13 +431,6 @@ def test_numerics_probe_noop_on_unquantized_pool(llama):
         assert tel.registry.get("numerics_logit_error") is None
 
 
-def test_paged_prefill_audit_refuses_the_moe_family():
-    cfg = reduce_config(get_config("qwen3-4b")).replace(family="moe")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        paged_step.paged_prefill_audit({}, torch.zeros((1, 4), dtype=torch.int32),
-                                       torch.tensor([3]), cfg)
-
-
 # -- the planner's registry -------------------------------------------------
 
 @pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16", "int8"])
