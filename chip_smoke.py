@@ -212,7 +212,9 @@ Phases, in order; any failure raises and exits non-zero:
    process (a gate it misses is printed, not fatal). Every K1 launch on
    the bulk-copy route, every K2 launch on the tensor cores.
 29. (O) Fleet and durability at llama3.2-3b's full width in bf16 with
-   phase 13's weights, one copy shared by every replica: (a)
+   phase 13's weights (the fleet drives (a)-(b) with the depth cut to the
+   first ``FLEET_LAYERS`` layers: their gates are counts, which depth does
+   not move), one copy shared by every replica: (a)
    ``fleet_bench``'s default workload (3 replicas, 8 tenants x 6 requests,
    prefix 16 + tail 8, 48 new tokens, block 8, 64 blocks, batch 4)
    through the bench's own functions: one replica, the affinity fleet
@@ -264,6 +266,33 @@ Phases, in order; any failure raises and exits non-zero:
    ``launch.serve --arch moonshot-v1-16b-a3b --reduced``, static and
    paged, print the same greedy tokens, and ``launch.train`` takes 3
    steps.
+31. (Q) The MLA, hybrid and RWKV-6 families through the static engine: (a)
+   reduced deepseek-v2-236b, hymba-1.5b and rwkv6-7b in float32, the card's
+   greedy streams equal the CPU's; (b) deepseek-v2-236b at full width (d
+   5120, 128 heads, q_lora 1536, kv_lora 512, qk 128+64, v 128, 160
+   experts of 1536, top-6, 2 shared, vocab 102,400) with the depth cut to
+   its dense head block + 4 MoE layers (5 of 60, 17.3 B bf16 parameters),
+   8 x 1024 tokens, 32 new, expanded and ``opt_mla_absorbed``: every
+   request finishes, K6 = the MoE calls, no attention kernel; the forms'
+   streams equal or each difference excused by a router near tie or the
+   logit near-tie audit; ms per synced decode step, a profile of 5 decode
+   steps, dropped assignments, the latent cache's bytes per token; (c)
+   hymba-1.5b at full width and depth (32 layers, d 1600, 25/5 heads of
+   64, window 1024, SSM state 16, d_inner 3200), 8 x 1024, 32 new, the
+   ring wrapping from the first decode step, prefill under ``chunked`` and
+   ``flash``: K3 = 32 under flash (tensor cores), 0 under chunked; the
+   streams audited as in (b); (d) rwkv6-7b at full width and depth (32
+   layers, d 4096, 64 heads of 64, d_ff 14,336), 8 x 1024, 32 new, in
+   bf16: the prefill's logits within ``BF16_ATOL`` of the largest logit of
+   ``lm_forward`` over the grown sequence (the decode steps' read); then
+   the same weights in float32: every step's served logits within
+   ``RWKV_F32_TOL`` of the largest logit of ``lm_forward``; K6 at the router's
+   rows (8, 160) and (8192, 160) and K3 at hymba's prefill shape beside
+   their plain versions, bounds and library calls; (e) for each of the
+   three, in this process: ``launch.serve --reduced --engine static`` on
+   the card prints the greedy tokens of the static engine on the CPU over
+   its weights and prompts, ``--engine paged`` refuses,
+   ``launch.train --reduced`` takes 3 steps.
 
 Phase 4 also runs one engine with ``attention_impl="flash"``, whose one-shot
 prefill goes through K3.
@@ -1178,18 +1207,41 @@ def phase_train_parity(dev):
     return _flash_counts()
 
 
+# the mixers' 3-D projections, whose true fan-in the reference's init misses
+_PROJECTIONS = ("wq", "wk", "wv", "wo", "wq_b", "wk_b", "wv_b", "wr")
+
+
+def _fan_in(path, shape):
+    """The true fan-in of a mixer's 3-D projection (``shape`` without the
+    layer dim; ``path`` its keys), or None for any other leaf: the input
+    dims, (d, H, k) → d for queries, keys, values and rwkv's receptance,
+    (H, k, d) → H·k for an output projection."""
+    if len(shape) == 3 and len(path) >= 2 and \
+            path[-2] in ("mixer", "attn") and path[-1] in _PROJECTIONS:
+        return shape[0] * (shape[1] if path[-1] == "wo" else 1)
+    return None
+
+
 def _true_fan_in(params):
-    """Rescale the attention projections of a stacked parameter tree, in
-    place, to std 1/sqrt(true fan-in). The reference's init reads a
-    matrix's fan-in from shape[-2], which for wq/wk/wv (d, H, dh) is the
-    head count and for wo (H, dh, d) the head dim: at d 3072 those weights
+    """Rescale the mixers' 3-D projections of a stacked parameter tree (both
+    layer stacks), in place, to std 1/sqrt(true fan-in). The reference's
+    init reads a matrix's fan-in from shape[-2], which for wq/wk/wv (d, H,
+    dh) is the head count and for wo (H, dh, d) the head dim (MLA's
+    wq_b/wk_b/wv_b and rwkv's wr/wk/wv the same): at d 3072 those weights
     are 5-11x too large (a property of the reference, see ROADMAP Queue
     3)."""
-    mixer = params["blocks"]["mixer"]
-    for name in ("wq", "wk", "wv", "wo"):
-        w = mixer[name]                               # stacked (L, ...)
-        fan_in = w.shape[1] * (w.shape[2] if name == "wo" else 1)
-        w.mul_(math.sqrt(w.shape[-2] / fan_in))
+    def walk(tree, path):
+        for k, w in tree.items():
+            if isinstance(w, dict):
+                walk(w, path + (k,))
+                continue
+            fan = _fan_in(path + (k,), w.shape[1:])
+            if fan:
+                w.mul_(math.sqrt(w.shape[-2] / fan))
+
+    for name in ("head_blocks", "blocks"):
+        if name in params:
+            walk(params[name], ())
     return params
 
 
@@ -2815,6 +2867,8 @@ BENCH_REPEATS = 2        # phase 25: rounds of each bench, cut from its
 FLEET_PROFILE_TICKS = 20  # phase 29: the fleet drive's profiled window is
 #                          ticks [20, 40), full batches while requests
 #                          still arrive (the drive takes 244 ticks)
+FLEET_LAYERS = 8         # phase 29 (a)-(b): llama3.2-3b's first 8 of 28
+#                          layers, to keep the whole smoke in its limit
 OVERHEAD_ROUNDS = 9      # phase 27 (c): on/off rounds of the overhead check
 
 
@@ -3865,7 +3919,8 @@ def _restore_case(rb, cfg, params, dev, case, tmp, max_new, n_req, seed,
 
 def phase_fleet(dev, card):
     """(O) Fleet and durability at llama3.2-3b's full width in bf16 with
-    phase 13's weights, one copy shared by every replica: (a)
+    phase 13's weights (depth cut to ``FLEET_LAYERS`` in (a) and (b)), one
+    copy shared by every replica: (a)
     ``fleet_bench``'s default workload through the bench's own functions
     (single, fleet, round-robin, chaos under the canned fleet plan with
     the journal and the invariants every tick), its gates, streams equal
@@ -3885,12 +3940,19 @@ def phase_fleet(dev, card):
     from repro_torch.benchmarks import fleet_bench as fb
     from repro_torch.benchmarks import resilience_bench as rsb
     from repro_torch.benchmarks import restore_bench as rb
+    from repro_torch.models.schema import tree_map
     from repro_torch.serve import (FaultInjector, GuardConfig, Journal,
                                    requeue_inflight)
     tag = "[29]"
     t_phase = time.perf_counter()
     cfg, params, _ = _full_width_llama(dev)
     V = cfg.vocab_size
+    # the fleet drives, depth cut: their gates are counts
+    fcfg = cfg.replace(n_layers=FLEET_LAYERS)
+    fparams = {**params, "blocks": tree_map(lambda a: a[:FLEET_LAYERS],
+                                            params["blocks"])}
+    print(f"{tag} (a)-(b) llama3.2-3b at full width, depth cut to its "
+          f"first {FLEET_LAYERS} of {cfg.n_layers} layers")
 
     # -- (a) fleet_bench at its default workload ---------------------------
     a = fb.parse_args(["--device", "cuda"])
@@ -3900,7 +3962,7 @@ def phase_fleet(dev, card):
     n_req, T = len(arrivals), a.max_new
     logits = _FleetLogits()
     engines = [logits.install(e) for e in fb.build_engines(
-        cfg, params, a.replicas, a.max_new, device=dev)]
+        fcfg, fparams, a.replicas, a.max_new, device=dev)]
 
     def reset():
         for e in engines:
@@ -3925,7 +3987,7 @@ def phase_fleet(dev, card):
     k1 = _check_k1_bulk("fleet drive")
     k2 = _k2_tc_if_any("fleet drive")
     steps = sum(e.metrics.decode_steps for e in engines)
-    check(k1 == cfg.n_layers * steps,
+    check(k1 == fcfg.n_layers * steps,
           f"fleet drive: K1 {k1} launches, {steps} decode steps")
     fleet_logits = logits.take(prompts, T)
     toks_1, toks_n = fb.delivered(treqs_1), fb.delivered(treqs_n)
@@ -4284,13 +4346,13 @@ def _record_samplings(eng):
     return rec
 
 
-def _moe_params(cfg, dev, seed=0):
+def _card_params(cfg, dev, seed=0):
     """Random bf16 weights of ``cfg``'s LM on the card, drawn from
     ``torch.Generator(dev)`` seeded ``seed``, one layer slice at a time
     directly in bf16 (``init_params`` draws a whole leaf in f32 and then
     scales it: moonshot's stacked ``wi`` alone would take 35.4 GB, twice).
-    Each leaf has its schema's distribution, the attention projections at
-    their true fan-in (``_true_fan_in``)."""
+    Each leaf has its schema's distribution, the mixers' projections at
+    their true fan-in (``_fan_in``)."""
     import torch
     from repro_torch.models.lm import lm_schema
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -4301,9 +4363,9 @@ def _moe_params(cfg, dev, seed=0):
         if ps.init == "embed":
             return 1.0
         shape = ps.shape[1:] if ps.logical[0] == "layers" else ps.shape
-        if path[-2] == "mixer" and path[-1] in ("wq", "wk", "wv", "wo"):
-            return (shape[0] * (shape[1] if path[-1] == "wo" else 1)) ** -0.5
-        return max(shape[-2] if len(shape) >= 2 else shape[-1], 1) ** -0.5
+        fan = _fan_in(path, shape) or (
+            shape[-2] if len(shape) >= 2 else shape[-1])
+        return max(fan, 1) ** -0.5
 
     def leaf(path, ps):
         t = torch.empty(ps.shape, dtype=torch.bfloat16, device=dev)
@@ -4535,22 +4597,32 @@ def _moe_kernel_times(tag, dev):
     return out
 
 
-def _launcher_tokens(tag, args):
-    """``repro_torch.launch.<args>`` in a child process on the card: its
-    ``seqN: [...]`` lines (the greedy tokens), or its log."""
-    import os
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+def _launcher(tag, module, argv):
+    """``python -m repro_torch.launch.MODULE ARGV`` run in this process on
+    the card, its launches kept out of the counts: (its ``seqN: [...]``
+    lines, the lines its logger took, ``main``'s return). What ``main``
+    raises propagates."""
+    import importlib
+    import logging
+    mod = importlib.import_module(f"repro_torch.launch.{module}")
+    saved = _save_counts()
+    lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    keep = Keep()
+    mod.log.addHandler(keep)
     t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=600)
-    check(out.returncode == 0, f"{' '.join(args)} exited {out.returncode}: "
-                               f"{out.stderr[-3000:]}")
-    text = out.stdout + out.stderr
-    seqs = [ln.split("seq", 1)[1] for ln in text.splitlines()
-            if re.search(r": seq\d+: \[", ln)]
-    print(f"{tag} (h) {' '.join(args)}: exit 0 in "
+    try:
+        ret = mod.main(argv)
+    finally:
+        mod.log.removeHandler(keep)
+        _restore_counts(saved)
+    print(f"{tag} launch.{module} {' '.join(argv)}: "
           f"{time.perf_counter() - t0:.1f} s")
-    return seqs, text
+    return [ln for ln in lines if ln.startswith("seq")], lines, ret
 
 
 def phase_moe(dev, card):
@@ -4580,7 +4652,7 @@ def phase_moe(dev, card):
     torch.cuda.empty_cache()
     before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    params = _moe_params(cfg, dev)
+    params = _card_params(cfg, dev)
     torch.cuda.synchronize()
     n_param = sum(t.numel() for t in tree_leaves(params))
     print(f"{tag} (b) {MOE_ARCH} random bf16 weights, {n_param / 1e9:.2f} B "
@@ -4706,15 +4778,8 @@ def phase_moe(dev, card):
           f"synced decode step, K5 {k5} (= {L} x {max_new - 1}, bulk-copy "
           f"route), K6 {k6} (= MoE calls), dropped assignments "
           f"{static_drops}")
-    lg, cache = eng._prefill(torch.as_tensor(fixed, device=dev))
-    state = [eng._sample(lg, None, 0.0), cache]
-
-    def step():
-        lg, state[1] = eng._decode(state[0], state[1])
-        state[0] = eng._sample(lg, None, 0.0)
-
-    print(f"{tag} (f) static " + step_profile(step, 5, "decode, batch 8"))
-    del eng, cache, state, rec
+    _profile_static(f"{tag} (f) static", eng, fixed, "decode, batch 8")
+    del eng, rec
     torch.cuda.empty_cache()
     eng = ContinuousEngine(cfg, params, device=dev, **kw)
     obs = _MoeCalls()
@@ -4832,20 +4897,21 @@ def phase_moe(dev, card):
     # -- (h) the launchers, reduced -------------------------------------------
     outs = {}
     for engine in ("static", "paged"):
-        outs[engine] = _launcher_tokens(tag, [
-            "repro_torch.launch.serve", "--arch", MOE_ARCH, "--reduced",
-            "--engine", engine])[0]
+        outs[engine] = _launcher(tag, "serve", [
+            "--arch", MOE_ARCH, "--reduced", "--engine", engine])[0]
     check(outs["static"] and outs["static"] == outs["paged"],
           f"launch.serve static and paged greedy tokens differ: {outs}")
     print(f"{tag} (h) launch.serve --arch {MOE_ARCH} --reduced: static and "
           f"paged print the same greedy tokens ({len(outs['static'])} "
           f"sequences)")
-    _, text = _launcher_tokens(tag, ["repro_torch.launch.train", "--arch",
-                                     MOE_ARCH, "--reduced", "--steps", "3"])
-    check(len(re.findall(r"step \d+ loss", text)) == 3 and
-          "done on cuda" in text, f"launch.train: {text[-2000:]}")
+    _, lines, out = _launcher(tag, "train", ["--arch", MOE_ARCH, "--reduced",
+                                             "--steps", "3"])
+    done = [ln for ln in lines if ln.startswith("done on cuda")]
+    check(len(out["history"]) == 3 and done and
+          all(math.isfinite(h) for h in out["history"]),
+          f"launch.train: {out['history']}, {lines[-5:]}")
     print(f"{tag} (h) launch.train --arch {MOE_ARCH} --reduced --steps 3: "
-          + [ln for ln in text.splitlines() if "done on" in ln][0].strip())
+          f"{done[0]}")
     print(f"{tag} phase time {time.perf_counter() - t_phase:.1f} s "
           f"(serving and kernels {t_serve:.1f}); {card}")
     for name, launches in (("flash_decode_paged", k1_main),
@@ -4853,6 +4919,555 @@ def phase_moe(dev, card):
                            ("flash_decode", k5_main)):
         times[name]["launches"] = launches
     times["softermax_rows"]["launches"] = k6_main
+    return times
+
+
+FAMILY_ARCHS = ("deepseek-v2-236b", "hymba-1.5b", "rwkv6-7b")
+DEEPSEEK_MOE_LAYERS = 4  # phase 31 (b): the dense head block + 4 MoE layers
+RWKV_F32_TOL = 5e-3      # phase 31 (d): served logits vs lm_forward, f32
+RWKV_BF16_LAYERS = 4     # phase 31 (d): the bf16 decode gate's depth cut
+RWKV_BF16_TOL = 0.1      # its served logits vs lm_forward, bf16
+DECODE_COPIES = 8        # phase 31 (d): rows of the row-count reading
+
+
+def _request_routes(routes, r, P, calls_per_token):
+    """Request r's rows of each MoE call of a static run over prompts of P
+    tokens: its P prompt rows in the prefill's calls, its one row in each
+    decode call."""
+    return [(s[r * P:(r + 1) * P], p[r * P:(r + 1) * P])
+            if i < calls_per_token else (s[r:r + 1], p[r:r + 1])
+            for i, (s, p) in enumerate(routes)]
+
+
+def _forms_audit(tag, label, a, b, a_logits, b_logits, vocab, a_routes=None,
+                 b_routes=None, calls_per_token=1, P=0):
+    """Two static runs of the same prompts, a and b ((B, T) tokens, logits
+    (B, V) per step): each request's streams equal, or its first differing
+    token excused by a router near tie in its own rows at or before that
+    token (``_routing_flip``), or else, over the requests left, by
+    ``_near_tie_audit`` on the logits (its band from their steps before
+    any divergence); raises otherwise. Returns the report's line."""
+    import numpy as np
+    B, T = a.shape
+    left = []
+    for r in range(B):
+        t = next((i for i in range(T) if a[r, i] != b[r, i]), T)
+        if t < T and a_routes is not None:
+            flip = _routing_flip(
+                *(_request_routes(x, r, P, calls_per_token)
+                  for x in (a_routes, b_routes)))
+            if flip is not None and flip[0] // calls_per_token <= t:
+                i, rows, band = flip
+                print(f"{tag} routing near-tie audit ({label}, request {r})"
+                      f": first routing difference at MoE call {i} (token "
+                      f"{i // calls_per_token}), first differing token {t};"
+                      f" (row, gap a, gap b) {rows[:4]}; band {band:.4g}")
+                check(all(ga <= band and gb <= band for _, ga, gb in rows),
+                      f"{label}, request {r}: a routing flip at a decisive "
+                      f"probability gap ({rows[:4]}, band {band:.4g})")
+                continue
+        left.append(r)
+    if left:
+        _, lines = _near_tie_audit(
+            a[left], [list(b[r]) for r in left],
+            [lg[left] for lg in a_logits],
+            {(j, s): lg[r] for s, lg in enumerate(b_logits)
+             for j, r in enumerate(left)}, vocab)
+        for line in lines:
+            print(f"{tag} near-tie audit ({label}, requests {left}): "
+                  f"{line}")
+    n_eq = sum(bool(np.array_equal(x, y)) for x, y in zip(a, b))
+    return (f"{label}: {(a == b).mean():.3f} of greedy tokens equal, "
+            f"{n_eq}/{B} streams equal (each difference excused)")
+
+
+def _static_drive(tag, label, cfg, params, prompts, max_new, dev,
+                  keep_routes=False):
+    """The static engine over ``prompts`` with its model steps synced and
+    timed, the launch counts set to 0 just before: (engine, result,
+    recorder, MoE calls)."""
+    import torch
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(cfg, params, max_len=prompts.shape[1] + max_new,
+                      device=dev)
+    rec = _StaticRecorder(eng)
+    obs = _MoeCalls(keep_routes=keep_routes)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with obs:
+        res = eng.generate(prompts, max_new)
+    wall = time.perf_counter() - t0
+    rec.close()
+    check(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all() and
+          res.tokens.shape == (len(prompts), max_new) and
+          all(torch.isfinite(lg).all().item() for lg in rec.logits),
+          f"{label}: a request did not finish, tokens out of the "
+          "vocabulary or non-finite logits")
+    print(f"{tag} {label}: {res.tokens.size / wall:.1f} tok/s ({wall:.2f} s"
+          f" incl. prefill {rec.prefill_ms:.0f} ms), "
+          f"{sum(rec.decode_ms) / len(rec.decode_ms):.2f} ms per synced "
+          f"decode step, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return eng, res, rec, obs
+
+
+def _profile_static(tag, eng, prompts, label, watch=()):
+    """``step_profile`` over 5 decode steps after a fresh prefill."""
+    import torch
+    lg, cache = eng._prefill(torch.as_tensor(prompts, device=eng.device))
+    state = [eng._sample(lg, None, 0.0), cache]
+
+    def step():
+        lg, state[1] = eng._decode(state[0], state[1])
+        state[0] = eng._sample(lg, None, 0.0)
+
+    print(f"{tag} " + step_profile(step, 5, label, watch=watch))
+
+
+def _forward_errors(params, cfg, prompts, res, rec, dev):
+    """Each served step's logits (``rec``: the prefill's, then each decode
+    step's) against ``lm_forward`` over the prompts grown by the served
+    tokens, at the same position: max |diff| over the largest |logit|."""
+    import numpy as np
+    import torch
+    from repro_torch.models.lm import lm_forward
+    P, V = prompts.shape[1], cfg.vocab_size
+    grown = np.concatenate([prompts, res.tokens[:, :-1]], 1)
+    with torch.no_grad():
+        fwd = lm_forward(params, torch.as_tensor(grown, device=dev), cfg)[0]
+    errs = []
+    for s, lg in enumerate(rec.logits):
+        ref = fwd[:, P - 1 + s, :V]
+        errs.append((lg[:, :V] - ref).abs().max().item() /
+                    ref.abs().max().item())
+    return errs
+
+
+def _rel(got, want):
+    """max |got - want| over the largest |want|."""
+    return ((got.float() - want.float()).abs().max() /
+            want.float().abs().max()).item()
+
+
+def _mla_layer_check(tag, params, cfg, prompts, dev):
+    """The first layer's MLA (the dense head block's) at full width on its
+    prefill input: ``mla_apply``'s absorbed form against its expanded
+    form; ``mla_decode`` of the last prompt token against the latent cache
+    of the others (``mla_prefill_cache``'s rows) against both forms' last
+    row; the latent row it writes against ``mla_prefill_cache``'s; each
+    within ``BF16_ATOL`` of the reference's largest magnitude. No router
+    is on this path."""
+    import torch
+    from repro_torch.models import mla
+    from repro_torch.models.layers import embed, rmsnorm
+    from repro_torch.models.schema import layer_params
+    bp = layer_params(params["head_blocks"], 0)
+    mp = bp["mixer"]
+    tok = torch.as_tensor(prompts, device=dev)
+    B, P = tok.shape
+    pos = torch.arange(P, dtype=torch.int32, device=dev).expand(B, P)
+    with torch.no_grad():
+        h = rmsnorm(bp["ln1"], embed(params["embed"], tok, cfg),
+                    cfg.norm_eps)
+        y = {form: mla.mla_apply(mp, h, cfg.replace(
+            opt_mla_absorbed=form == "absorbed"), positions=pos,
+            window=cfg.window) for form in ("expanded", "absorbed")}
+        ckv, krope = mla.mla_prefill_cache(mp, h, cfg, pos)
+        c_ckv, c_krope = torch.zeros_like(ckv), torch.zeros_like(krope)
+        c_ckv[:, :P - 1], c_krope[:, :P - 1] = ckv[:, :P - 1], \
+            krope[:, :P - 1]
+        y1, c_ckv, c_krope = mla.mla_decode(
+            mp, h[:, -1], cfg, cache_ckv=c_ckv, cache_krope=c_krope,
+            cache_len=torch.full((B,), P - 1, dtype=torch.int32,
+                                 device=dev))
+    errs = {"absorbed vs expanded": _rel(y["absorbed"], y["expanded"]),
+            "decode vs expanded": _rel(y1, y["expanded"][:, -1]),
+            "decode vs absorbed": _rel(y1, y["absorbed"][:, -1]),
+            "written c_kv row": _rel(c_ckv[:, -1], ckv[:, -1]),
+            "written k_rope row": _rel(c_krope[:, -1], krope[:, -1])}
+    check(torch.equal(c_ckv[:, :P - 1], ckv[:, :P - 1]) and
+          torch.equal(c_krope[:, :P - 1], krope[:, :P - 1]),
+          "mla_decode changed a cache row before cache_len")
+    for name, e in errs.items():
+        check(e <= BF16_ATOL, f"deepseek MLA layer, {name}: {e} of the "
+                              f"largest magnitude > {BF16_ATOL}")
+    print(f"{tag} (b) one MLA layer at full width (kv_lora "
+          f"{cfg.mla.kv_lora}, {cfg.n_heads} heads, 8 x {P} prefill input, "
+          f"bf16), max |diff| over the reference's largest magnitude (gate "
+          f"{BF16_ATOL} each): " + ", ".join(
+              f"{k} {v:.4g}" for k, v in errs.items()))
+
+
+def _row_count_noise(params, cfg, prompts, dev):
+    """Position 0's logits from the same layers over the prompts (every
+    product over the prefill's B x P rows) and over their first tokens
+    alone (B rows, as in a decode step): by causality the same function of
+    the same token, through the same code, so the two differ only by how
+    the products round at the two row counts. Returns {depth: max |diff|
+    over the largest |logit|} after 1, 2, 4, ... and all the layers."""
+    import torch
+    from repro_torch.models.layers import embed, logits, rmsnorm
+    from repro_torch.models.lm import _block_apply
+    from repro_torch.models.schema import layer_params, n_stacked
+    tok = torch.as_tensor(prompts, device=dev)
+    B, P = tok.shape
+    pos = torch.arange(P, dtype=torch.int32, device=dev).expand(B, P)
+    L, V = n_stacked(params["blocks"]), cfg.vocab_size
+    xs = [embed(params["embed"], t, cfg) for t in (tok, tok[:, :1])]
+    out = {}
+    with torch.no_grad():
+        for layer in range(L):
+            bp = layer_params(params["blocks"], layer)
+            xs = [_block_apply(bp, x, cfg, pos[:, :x.shape[1]])[0]
+                  for x in xs]
+            if layer & (layer + 1) == 0 or layer == L - 1:
+                many, few = (logits(params["embed"], rmsnorm(
+                    params["final_norm"], x[:, 0], cfg.norm_eps),
+                    cfg)[:, :V] for x in xs)
+                out[layer + 1] = _rel(few, many)
+    return out
+
+
+def _decode_rows_noise(params, cfg, prompts, res, rec, dev):
+    """The static run ``res``/``rec`` again through ``lm_prefill`` and
+    ``lm_decode_step`` with each request ``DECODE_COPIES`` times over, each
+    step fed the served tokens: the same code on the same tokens, only the
+    row count of every product differs. Returns each step's max |diff| of
+    the first B rows' logits from the served ones over the largest
+    |logit|."""
+    import numpy as np
+    import torch
+    from repro_torch.models.lm import lm_decode_step, lm_prefill
+    B, P = prompts.shape
+    V, n = cfg.vocab_size, DECODE_COPIES
+    fed = torch.as_tensor(np.tile(res.tokens, (n, 1)), device=dev)
+    errs = []
+    with torch.no_grad():
+        lg, cache = lm_prefill(params, torch.as_tensor(
+            np.tile(prompts, (n, 1)), device=dev), cfg,
+            P + res.tokens.shape[1])
+        for s, served in enumerate(rec.logits):
+            errs.append(_rel(lg[:B, :V], served[:, :V]))
+            if s + 1 < len(rec.logits):
+                lg, cache = lm_decode_step(params, fed[:, s], cache, cfg)
+    return errs
+
+
+def _drawn(tag, label, cfg, dev):
+    """``_card_params`` of ``cfg``, timed and counted in a printed line."""
+    import torch
+    from repro_torch.models.schema import tree_leaves
+    t0 = time.perf_counter()
+    params = _card_params(cfg, dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_leaves(params))
+    print(f"{tag} {label}: {n / 1e9:.2f} B random bf16 parameters "
+          f"({n * 2 / 1e9:.1f} GB) in {time.perf_counter() - t0:.2f} s")
+    return params
+
+
+def _free():
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _family_kernel_times(tag, dev):
+    """K6 at deepseek's router rows (8, 160) and (8192, 160) and K3 at
+    hymba's prefill (B 8, 25/5 heads, S 1024, D 64, causal, the tensor-core
+    route): each held to its plain version (``tolerance`` of its output's
+    dtype), its device ms beside the plain version's, the bound and a
+    library call computing the same function."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.parity import parity_error, tolerance
+    from repro_torch.kernels.softermax import (softermax_rows,
+                                               softermax_rows_ref)
+    saved = _save_counts()
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rng = np.random.default_rng(41)
+    out = {}
+
+    def entry(name, got, want, ms, plain, nbytes, flops, lib, peak):
+        err, held = parity_error(got, want)
+        check(held <= tolerance(want.dtype),
+              f"{name}: max |err| {err}, checked error {held} > "
+              f"{tolerance(want.dtype)}")
+        t_b = nbytes / HBM_BYTES_PER_S * 1e3
+        t_o = flops / PEAK_FLOPS[peak] * 1e3
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                     "bound_ms": max(t_b, t_o),
+                     "bound_by": "bytes" if t_b >= t_o else "operations",
+                     "library_ms": lib}
+
+    for rows in (8, 8 * 1024):
+        x = _rand(rng, (rows, 160), 3.0).to(dev)
+        xs = x * math.log(2)
+        entry(f"softermax_rows ({rows}, 160)", softermax_rows(x),
+              softermax_rows_ref(x),
+              _time_ms(lambda: softermax_rows(x), flush),
+              _time_ms(lambda: softermax_rows_ref(x), flush),
+              2 * x.numel() * 4, 5 * x.numel(),
+              _time_ms(lambda: torch.softmax(xs, dim=-1), flush), "float32")
+    B, Hq, Hkv, S, D = 8, 25, 5, 1024, 64
+    q = _rand(rng, (B, Hq, S, D), D ** -0.5).to(dev, torch.bfloat16)
+    k = _rand(rng, (B, Hkv, S, D)).to(dev, torch.bfloat16)
+    v = _rand(rng, (B, Hkv, S, D)).to(dev, torch.bfloat16)
+    pairs = B * Hq * S * (S + 1) // 2
+    tc0 = _flash_tc_counts()[0]
+    got = flash_attention(q, k, v)
+    check(_flash_tc_counts()[0] == tc0 + 1,
+          "K3 at hymba's prefill shape: not on the tensor-core route")
+    entry("flash_attention", got, flash_attention_plain(q, k, v),
+          _time_ms(lambda: flash_attention(q, k, v), flush, iters=10),
+          _time_ms(lambda: flash_attention_plain(q, k, v), flush, iters=3),
+          (2 * q.numel() + 2 * k.numel()) * 2 + 2 * B * Hq * S * 4,
+          4 * D * pairs,
+          _time_ms(lambda: F.scaled_dot_product_attention(
+              q, k, v, is_causal=True, scale=math.log(2), enable_gqa=True),
+              flush, iters=10), "bfloat16")
+    _restore_counts(saved)
+    for name, e in out.items():
+        print(f"{tag} {name}: {e['ms']:.4f} ms (plain {e['plain_ms']:.4f}, "
+              f"bound {e['bound_ms']:.4g} by {e['bound_by']}, library "
+              f"{e['library_ms']:.4f}; max |err| {e['max_abs_err']:.3g})")
+    k6 = out.pop("softermax_rows (8192, 160)")
+    return {"softermax_rows": {**k6, "rows_8": out.pop(
+        "softermax_rows (8, 160)")}, "flash_attention": out[
+        "flash_attention"]}
+
+
+def _family_launchers(tag, arch):
+    """``launch.serve --arch ARCH --reduced --engine static`` on the card,
+    its greedy tokens those of the static engine on the CPU over the same
+    weights (the launcher's draw from ``torch.Generator("cuda")`` seeded 0,
+    moved to the CPU) and prompts; ``--engine paged`` refused;
+    ``launch.train --reduced --steps 3`` on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models.registry import (get_config, init_lm_params,
+                                             reduce_config)
+    from repro_torch.models.schema import tree_map
+    from repro_torch.serve import ServeEngine
+    got = _launcher(tag, "serve", ["--arch", arch, "--reduced", "--engine",
+                                   "static"])[0]
+    args = launch_serve.parse_args([])
+    cfg = reduce_config(get_config(arch))
+    params = tree_map(lambda a: a.cpu(), init_lm_params(
+        cfg, torch.Generator(device="cuda").manual_seed(args.seed)))
+    prompts = np.random.default_rng(args.seed).integers(
+        1, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
+    want = ServeEngine(cfg, params, max_len=args.prompt_len + args.max_new,
+                       device="cpu").generate(prompts, args.max_new).tokens
+    want = [f"seq{i}: {row.tolist()}" for i, row in enumerate(want[:2])]
+    check(got == want, f"launch.serve --arch {arch}: the card's tokens "
+                       f"{got} differ from the CPU's {want}")
+    try:
+        _launcher(tag, "serve", ["--arch", arch, "--reduced", "--engine",
+                                 "paged"])
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "paged serving" in refused,
+          f"launch.serve --arch {arch} --engine paged did not refuse")
+    hist = _launcher(tag, "train", ["--arch", arch, "--reduced", "--steps",
+                                    "3"])[2]["history"]
+    check(len(hist) == 3 and all(math.isfinite(h) for h in hist),
+          f"launch.train --arch {arch}: {hist}")
+    print(f"{tag} (e) {arch} --reduced: launch.serve static prints the "
+          f"CPU's greedy tokens on its weights ({len(got)} sequences); "
+          f"--engine paged refuses ({refused}); launch.train took 3 steps, "
+          f"loss {hist[0]:.4f} -> {hist[-1]:.4f}")
+
+
+def phase_families(dev, card):
+    """31. (Q) The MLA, hybrid and RWKV-6 families through the static
+    engine. Returns this path's readings of K6 and K3 for the ``kernels``
+    line."""
+    import numpy as np
+    import torch
+    from repro_torch.models.registry import (get_config, init_lm_params,
+                                             reduce_config)
+    from repro_torch.models.schema import tree_map
+    from repro_torch.serve import ServeEngine
+    tag = "[31]"
+    t_phase = time.perf_counter()
+
+    # -- (a) the reduced configs, card against CPU, float32 ------------------
+    for arch in FAMILY_ARCHS:
+        cfg = reduce_config(get_config(arch))
+        params = init_lm_params(cfg, torch.Generator().manual_seed(0))
+        prompts = np.random.default_rng(31).integers(
+            1, cfg.vocab_size, (3, 20)).astype(np.int32)
+        got = {d: ServeEngine(cfg, params, max_len=30, device=d).generate(
+            prompts, 10).tokens for d in ("cpu", dev)}
+        check(np.array_equal(got["cpu"], got[dev]),
+              f"reduced {arch}: card and CPU streams differ")
+        print(f"{tag} (a) reduced {arch}, float32: the static engine's 3 "
+              f"greedy streams of 10 tokens on the card equal the CPU's")
+    P, max_new = 1024, 32
+    rng = np.random.default_rng(31)
+    k6_main, k3_main = 0, 0
+
+    # -- (b) deepseek-v2-236b, depth cut to its head block + 4 MoE layers -----
+    cfg = get_config("deepseek-v2-236b").replace(
+        n_layers=1 + DEEPSEEK_MOE_LAYERS)
+    V, n_moe = cfg.vocab_size, DEEPSEEK_MOE_LAYERS
+    params = _drawn(tag, f"(b) deepseek-v2-236b cut to {cfg.n_layers} of 60 "
+                    f"layers (the dense head block + {n_moe} MoE layers)",
+                    cfg, dev)
+    prompts = rng.integers(1, V, (8, P)).astype(np.int32)
+    _mla_layer_check(tag, params, cfg, prompts, dev)
+    runs = {}
+    for form in ("expanded", "absorbed"):
+        c = cfg.replace(opt_mla_absorbed=form == "absorbed")
+        eng, res, rec, obs = _static_drive(
+            tag, f"(b) {form} MLA, 8 x {P} tokens, {max_new} new", c,
+            params, prompts, max_new, dev, keep_routes=True)
+        k6, k5 = _softermax_counts()[0], _all_counts()[4]
+        check(k6 == obs.calls == n_moe * max_new,
+              f"deepseek {form}: K6 launches {k6}, MoE calls {obs.calls}, "
+              f"want {n_moe} x {max_new}")
+        check(k5 == 0 and _counts() == (0, 0) and _flash_counts()[0] == 0,
+              f"deepseek {form}: an attention kernel launched")
+        k6_main += k6
+        print(f"{tag} (b) {form}: K6 {k6} (= MoE calls, {n_moe} x "
+              f"{max_new}), dropped assignments {obs.dropped()}")
+        _profile_static(tag, eng, prompts, f"(b) {form} decode, batch 8",
+                        watch=("softermax_rows",))
+        runs[form] = (res.tokens, rec.logits, obs.routes)
+        del eng, rec, obs
+        _free()
+    print(f"{tag} (b) " + _forms_audit(
+        tag, "absorbed vs expanded", runs["expanded"][0],
+        runs["absorbed"][0], runs["expanded"][1], runs["absorbed"][1], V,
+        runs["expanded"][2], runs["absorbed"][2], n_moe, P))
+    a = cfg.mla
+    mla_b = (a.kv_lora + a.qk_rope) * 2
+    gqa_b = cfg.n_heads * (a.qk_nope + a.qk_rope + a.v_head) * 2
+    print(f"{tag} (b) latent cache: {mla_b} bytes per token a layer "
+          f"(kv_lora {a.kv_lora} + qk_rope {a.qk_rope}, bf16), against "
+          f"{gqa_b} for {cfg.n_heads} heads' expanded K ({a.qk_nope} + "
+          f"{a.qk_rope}) and V ({a.v_head}): {gqa_b / mla_b:.1f}x; "
+          f"{cfg.n_layers} layers x 8 x {P + max_new} tokens "
+          f"{cfg.n_layers * 8 * (P + max_new) * mla_b / 2 ** 20:.1f} MiB")
+    del runs, params
+    _free()
+
+    # -- (c) hymba-1.5b, full depth: chunked and flash prefills ---------------
+    cfg = get_config("hymba-1.5b")
+    V, L = cfg.vocab_size, cfg.n_layers
+    params = _drawn(tag, f"(c) hymba-1.5b, {L} layers, window {cfg.window} "
+                    "(the ring wraps from the first decode step)", cfg, dev)
+    prompts = rng.integers(1, V, (8, P)).astype(np.int32)
+    runs = {}
+    for impl in ("chunked", "flash"):
+        c = cfg.replace(attention_impl=impl)
+        eng, res, rec, _ = _static_drive(
+            tag, f"(c) {impl} prefill, 8 x {P} tokens, {max_new} new", c,
+            params, prompts, max_new, dev)
+        k3, k3_tc = _flash_counts()[0], _flash_tc_counts()[0]
+        want = L if impl == "flash" else 0
+        check(k3 == k3_tc == want and _all_counts()[4] == 0 and
+              _counts() == (0, 0),
+              f"hymba {impl}: K3 launches {k3} ({k3_tc} on the tensor "
+              f"cores), want {want}; K5 {_all_counts()[4]}")
+        k3_main += k3
+        print(f"{tag} (c) {impl}: K3 {k3} (tensor cores {k3_tc}; want "
+              f"{want}), no decode kernel (the ring's plain decode)")
+        if impl == "flash":
+            _profile_static(tag, eng, prompts, "(c) decode, batch 8")
+        runs[impl] = (res.tokens, rec.logits)
+        del eng, rec
+        _free()
+    print(f"{tag} (c) " + _forms_audit(
+        tag, "flash vs chunked prefill", runs["chunked"][0],
+        runs["flash"][0], runs["chunked"][1], runs["flash"][1], V))
+    del runs, params
+    _free()
+
+    # -- (d) rwkv6-7b, full depth ---------------------------------------------
+    cfg = get_config("rwkv6-7b")
+    V, L = cfg.vocab_size, cfg.n_layers
+    params = _drawn(tag, f"(d) rwkv6-7b, {L} layers", cfg, dev)
+    prompts = rng.integers(1, V, (8, P)).astype(np.int32)
+    eng, res, rec, _ = _static_drive(
+        tag, f"(d) bf16, 8 x {P} tokens, {max_new} new", cfg, params, prompts,
+        max_new, dev)
+    check(_all_counts() == (0,) * 7, "rwkv: a kernel launched")
+    _profile_static(tag, eng, prompts, "(d) decode, batch 8")
+    del eng
+    _free()
+    errs = _forward_errors(params, cfg, prompts, res, rec, dev)
+    check(errs[0] <= BF16_ATOL,
+          f"rwkv prefill logits vs lm_forward: {errs[0]} of the largest "
+          f"logit > {BF16_ATOL}")
+    noise = _row_count_noise(params, cfg, prompts, dev)
+    rows = _decode_rows_noise(params, cfg, prompts, res, rec, dev)
+    print(f"{tag} (d) bf16: prefill logits vs lm_forward over the grown "
+          f"{P + max_new - 1} tokens {errs[0]:.4g} of the largest logit "
+          f"(gate {BF16_ATOL}); the {max_new - 1} decode steps' "
+          f"{min(errs[1:]):.4g}-{max(errs[1:]):.4g} (gated below at "
+          f"{RWKV_BF16_LAYERS} layers). Row counts alone: the served run "
+          f"again at {DECODE_COPIES} x 8 rows, fed the served tokens, its "
+          f"first 8 rows' logits vs the served ones: prefill {rows[0]:.4g}, "
+          f"decode steps {min(rows[1:]):.4g}-{max(rows[1:]):.4g}; position 0"
+          f" (an empty state) over {8 * P} rows and over 8: "
+          + ", ".join(f"{k} layers {v:.4g}" for k, v in noise.items()))
+    del rec
+    _free()
+    n = RWKV_BF16_LAYERS
+    cut = cfg.replace(n_layers=n)
+    cparams = {**params, "blocks": tree_map(lambda a: a[:n],
+                                            params["blocks"])}
+    eng, res, rec, _ = _static_drive(
+        tag, f"(d) bf16 cut to {n} layers, 8 x {P} tokens, {max_new} new",
+        cut, cparams, prompts, max_new, dev)
+    del eng
+    errs = _forward_errors(cparams, cut, prompts, res, rec, dev)
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    check(errs[worst] <= RWKV_BF16_TOL,
+          f"rwkv bf16 at {n} layers: served logits vs lm_forward at step "
+          f"{worst}: {errs[worst]} of the largest logit > {RWKV_BF16_TOL}")
+    rows = _decode_rows_noise(cparams, cut, prompts, res, rec, dev)
+    print(f"{tag} (d) bf16 at {n} layers: every step's served logits vs "
+          f"lm_forward within {errs[worst]:.4g} of the largest logit (step "
+          f"{worst}; gate {RWKV_BF16_TOL}), prefill step {errs[0]:.4g}; at "
+          f"{DECODE_COPIES} x 8 rows vs 8: prefill {rows[0]:.4g}, decode "
+          f"steps {min(rows[1:]):.4g}-{max(rows[1:]):.4g}")
+    del rec, cparams
+    # the same weights in float32 hold the decode path at full width
+    params = tree_map(lambda a: a.float(), params)
+    _free()
+    c32 = cfg.replace(compute_dtype="float32")
+    eng, res, rec, _ = _static_drive(
+        tag, f"(d) float32, 8 x {P} tokens, {max_new} new", c32, params,
+        prompts, max_new, dev)
+    del eng
+    errs = _forward_errors(params, c32, prompts, res, rec, dev)
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    check(errs[worst] <= RWKV_F32_TOL,
+          f"rwkv float32 served logits vs lm_forward at step {worst}: "
+          f"{errs[worst]} of the largest logit > {RWKV_F32_TOL}")
+    print(f"{tag} (d) float32: every step's served logits vs lm_forward "
+          f"over the grown sequence within {errs[worst]:.4g} of the largest "
+          f"logit (step {worst}; gate {RWKV_F32_TOL}), prefill step "
+          f"{errs[0]:.4g}")
+    del rec, params
+    _free()
+    times = _family_kernel_times(tag, dev)
+
+    # -- (e) the launchers, reduced -------------------------------------------
+    for arch in FAMILY_ARCHS:
+        _family_launchers(tag, arch)
+    print(f"{tag} phase time {time.perf_counter() - t_phase:.1f} s; {card}")
+    times["softermax_rows"]["launches"] = k6_main
+    times["flash_attention"]["launches"] = k3_main
     return times
 
 
@@ -4948,10 +5563,13 @@ def main() -> int:
     phase_resilience(dev, card)
     phase_fleet(dev, card)
     moe_path = phase_moe(dev, card)
+    family_path = phase_families(dev, card)
     for k in kernels:
         k["card"] = card
         if k["name"] in moe_path:
             k["moe"] = moe_path[k["name"]]
+        if k["name"] in family_path:
+            k["families"] = family_path[k["name"]]
         lib = "" if k["library_ms"] is None else \
             f", library {k['library_ms']:.4f} ms"
         if "earlier_ms" in k:

@@ -80,8 +80,7 @@ def _time_op_paths(cfg, params, prompt, *, shared_len, block_size, chunk,
     def dev(a):
         return torch.as_tensor(np.asarray(a, np.int32), device=device)
 
-    params = unstack_layers(tree_map(lambda a: a.to(device), params),
-                            cfg.n_layers)
+    params = unstack_layers(tree_map(lambda a: a.to(device), params))
     bs = block_size
     S = prompt.shape[0]
     m0 = shared_len

@@ -50,6 +50,13 @@ up what happened.
         --block-size 8 --num-blocks 24 --replicas 2 --fleet-fault-plan \
         canned --journal-out wal.jsonl --snapshot-dir snaps
 
+Every decoder-only family serves on the static engine (the MLA, rwkv and
+hybrid families only there: ``--engine paged`` refuses them, as the
+reference does); ``--optimized`` also turns on ``opt_mla_absorbed``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
+        --reduced --device cpu --batch 2 --prompt-len 20 --max-new 6
+
 Runs on the CUDA card by default; ``--device cpu`` runs the plain PyTorch
 versions of the kernels instead (with ``--reduced`` for a CPU-sized model).
 Weights are random, drawn from ``--seed``; prompts too. The paged-engine
@@ -72,6 +79,7 @@ from repro_torch.serve import (ContinuousEngine, EngineGuard,
                                FleetSupervisor, Journal, Router, ServeEngine,
                                Telemetry, canned_fleet_plan, canned_plan,
                                check_invariants)
+from repro_torch.serve.paged_step import check_paged_support
 from repro_torch.utils.device import resolve_device
 
 log = logging.getLogger("repro_torch.launch.serve")
@@ -248,6 +256,8 @@ def main(argv=None) -> None:
         cfg = reduce_config(cfg)
     if args.optimized:
         cfg = cfg.with_opts(True)
+    if args.engine == "paged":
+        check_paged_support(cfg)        # before the weights are drawn
     params = init_lm_params(
         cfg, torch.Generator(device=device).manual_seed(args.seed))
     rng = np.random.default_rng(args.seed)

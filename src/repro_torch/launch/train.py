@@ -1,10 +1,13 @@
-"""Training launcher: the dense or MoE LM through the fault-tolerant loop
-(checkpoint/restart, straggler monitor) on one device.
+"""Training launcher: a decoder-only LM (dense, MoE, MLA, rwkv or hybrid
+family) through the fault-tolerant loop (checkpoint/restart, straggler
+monitor) on one device.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \
         --steps 3 --batch 1 --seq 4096
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \
         --device cpu --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \
+        --reduced --device cpu --steps 3
 
 Runs on the CUDA card by default; ``--device cpu`` runs the kernels' plain
 versions instead (with ``--reduced`` for a CPU-sized model). Weights are

@@ -1,6 +1,6 @@
 """Architecture registry: ``--arch <id>`` → config; reduced CPU configs;
 parameter init and the uniform model interface (``model_fns``) for the
-dense and MoE LMs."""
+decoder-only LMs (dense, MoE, MLA, rwkv and hybrid families)."""
 from __future__ import annotations
 
 import dataclasses
@@ -83,14 +83,15 @@ def init_lm_params(cfg: ModelConfig, generator: torch.Generator):
 
 
 def model_fns(cfg: ModelConfig) -> SimpleNamespace:
-    """The dense and MoE families' uniform interface, as in the JAX
+    """The decoder-only families' uniform interface, as in the JAX
     registry: ``schema``, ``init(generator)`` (parameters on
     ``generator.device``), ``loss(params, batch)`` (``lm_loss``: cross
     entropy with its own z-loss weight, as the reference's registry keeps
     it, plus the MoE layers' aux loss; metrics ``{"ce", "aux"}``), and the
-    static engine's
-    ``prefill(params, batch, max_len)``, ``decode_step(params, tokens1,
-    cache)`` and ``cache_spec(batch, max_len)``."""
+    static engine's ``prefill(params, batch, max_len)``,
+    ``decode_step(params, tokens1, cache)`` and ``cache_spec(batch,
+    max_len)``. The encoder-decoder family (whisper) raises
+    ``NotImplementedError`` until it is ported."""
     schema = lm_schema(cfg)
     return SimpleNamespace(
         schema=schema,

@@ -56,6 +56,16 @@ def stack_schema(schema: Schema, n_layers: int) -> Schema:
                                          ps.init, ps.std), schema)
 
 
+STACKS = ("head_blocks", "blocks")      # layer stacks, in forward order
+
+
+def n_stacked(blocks) -> int:
+    """Layers in a stack: a per-layer list or a stacked tree."""
+    if isinstance(blocks, list):
+        return len(blocks)
+    return tree_leaves(blocks)[0].shape[0]
+
+
 def layer_params(blocks, layer: int):
     """One layer's parameters: views into the stacked tree, or the entry of
     a per-layer list made once by ``unstack_layers`` (no copies either way)."""
@@ -64,11 +74,14 @@ def layer_params(blocks, layer: int):
     return tree_map(lambda a: a[layer], blocks)
 
 
-def unstack_layers(params, n_layers: int):
-    """``params`` with its layer stack as a list of per-layer views, so an
-    eager layer loop does not re-slice every leaf on every step."""
-    return {**params, "blocks": [layer_params(params["blocks"], i)
-                                 for i in range(n_layers)]}
+def unstack_layers(params):
+    """``params`` with each layer stack (``STACKS``) as a list of per-layer
+    views, each stack by its own length, so an eager layer loop does not
+    re-slice every leaf on every step."""
+    return {**params, **{
+        name: [layer_params(params[name], i)
+               for i in range(n_stacked(params[name]))]
+        for name in STACKS if name in params}}
 
 
 def _init_leaf(ps: ParamSpec, generator: torch.Generator,

@@ -61,7 +61,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.softermax import softmax_base2
 from repro_torch.models.lm import cast_matrix_params, maybe_cast_params
 from repro_torch.models.registry import model_fns
-from repro_torch.models.schema import tree_map, unstack_layers
+from repro_torch.models.schema import STACKS, tree_map, unstack_layers
 from repro_torch.serve.autotune import (AUTOTUNE_MODES, GridPlanner,
                                        default_candidates)
 from repro_torch.serve.faults import FAULT_REQ, FaultInjector, TransientFault
@@ -112,17 +112,15 @@ class ServeEngine:
         if cfg.opt_bf16_params:
             # the reference's rule: leaves of rank >= 2 of the stacked tree
             # (block norm scales included) cast once at load
-            params = unstack_layers(maybe_cast_params(params, cfg),
-                                    cfg.n_layers)
+            params = unstack_layers(maybe_cast_params(params, cfg))
         else:
-            # the per-use casts of the matrices, done once: per layer, so
-            # norm scales stay as they are
-            params = unstack_layers(params, cfg.n_layers)
+            # the per-use casts of the matrices, done once: per layer (norm
+            # scales stay as they are), each stack by its own length; the
+            # leaves the reference reads in fp32 stay fp32
             dt = cfg.compute_dtype_
-            params = {**cast_matrix_params(
-                {k: v for k, v in params.items() if k != "blocks"}, dt),
-                "blocks": [cast_matrix_params(bp, dt)
-                           for bp in params["blocks"]]}
+            params = {k: [cast_matrix_params(bp, dt) for bp in v]
+                      if k in STACKS else cast_matrix_params(v, dt)
+                      for k, v in unstack_layers(params).items()}
         self.params = params
         self.max_len = max_len
         self.fns = model_fns(cfg)
@@ -236,7 +234,7 @@ class ContinuousEngine:
             telemetry.clock if telemetry is not None else time.monotonic)
         self.params = unstack_layers(cast_matrix_params(
             tree_map(lambda a: a.to(self.device), params),
-            cfg.compute_dtype_), cfg.n_layers)
+            cfg.compute_dtype_))
         self.block_size = block_size
         self.max_batch = max_batch
         self.max_len = max_len

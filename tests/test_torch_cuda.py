@@ -36,7 +36,10 @@ engine continues a snapshotted one token for token, its pool bits equal.
 The MoE tests hold reduced moonshot-v1-16b-a3b's MoE layer (K6 on the
 router) and its paged engine on the card to their CPU runs: the routing
 and the streams equal, except where a selection flips at a router near
-tie (k-th/(k+1)-th probability gap within 1e-6).
+tie (k-th/(k+1)-th probability gap within 1e-6). The reduced MLA, hybrid
+and rwkv models' static engines on the card emit the CPU's greedy streams
+EXACTLY, with K6 launched once per MoE call of deepseek's router and K3
+once per layer of hymba's prefill under ``attention_impl="flash"``.
 """
 import numpy as np
 import pytest
@@ -1293,3 +1296,57 @@ def test_moe_paged_engine_on_the_card(cuda_device, monkeypatch):
             assert all(gap <= 1e-6 for _, gap in flips), flips
             return
     pytest.fail("streams differ with the same routing everywhere")
+
+
+def _family(arch, seed=0, **over):
+    from repro_torch.models.registry import (get_config, init_lm_params,
+                                             reduce_config)
+    cfg = reduce_config(get_config(arch)).replace(**over)
+    return cfg, init_lm_params(cfg, torch.Generator().manual_seed(seed))
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "hymba-1.5b",
+                                  "rwkv6-7b"])
+def test_family_static_engine_on_the_card(cuda_device, arch, monkeypatch):
+    """The reduced MLA, hybrid and rwkv models in float32: the static engine
+    on the card emits the greedy streams of the same engine on the CPU
+    (20-token prompts, 10 new: hymba's ring of 16 wraps); deepseek's router
+    launches K6 once per MoE call on the card and never on the CPU."""
+    from repro_torch.serve import ServeEngine
+    cfg, params = _family(arch)
+    prompts = np.random.default_rng(2).integers(
+        1, cfg.vocab_size, (3, 20)).astype(np.int32)
+    rec = _record_routes(monkeypatch)
+    streams = {}
+    for d in ("cpu", cuda_device):
+        n0, before = len(rec), softermax_rows.launches
+        streams[str(d)] = ServeEngine(cfg, params, max_len=30,
+                                      device=d).generate(prompts, 10).tokens
+        calls = len(rec) - n0
+        assert calls == (cfg.n_layers - 1) * 10 if cfg.moe.n_experts \
+            else calls == 0
+        assert softermax_rows.launches - before == \
+            (0 if d == "cpu" else calls)
+    np.testing.assert_array_equal(streams["cpu"], streams[str(cuda_device)])
+
+
+def test_hymba_flash_prefill_on_the_card(cuda_device):
+    """Reduced hymba-1.5b under ``attention_impl="flash"``: one K3 launch
+    per layer in the prefill and none in decode, the greedy streams those
+    of the CPU (K3's plain version)."""
+    from repro_torch.serve import ServeEngine
+    cfg, params = _family("hymba-1.5b", attention_impl="flash")
+    prompts = np.random.default_rng(3).integers(
+        1, cfg.vocab_size, (2, 24)).astype(np.int32)
+    streams = {}
+    for d in ("cpu", cuda_device):
+        eng = ServeEngine(cfg, params, max_len=32, device=d)
+        before = flash_attention.launches
+        lg, cache = eng._prefill(torch.as_tensor(prompts, device=d))
+        assert flash_attention.launches - before == \
+            (0 if d == "cpu" else cfg.n_layers)
+        before = flash_attention.launches
+        streams[str(d)] = eng.generate(prompts, 8).tokens
+        assert flash_attention.launches - before == \
+            (0 if d == "cpu" else cfg.n_layers)
+    np.testing.assert_array_equal(streams["cpu"], streams[str(cuda_device)])

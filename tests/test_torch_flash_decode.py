@@ -315,6 +315,9 @@ def test_cache_spec_and_model_fns_match_jax(model):
 
 @pytest.mark.parametrize("arch", ["hymba-1.5b", "rwkv6-7b"])
 def test_other_families_raise_not_implemented(arch):
-    cfg = reduce_config(get_config(arch))
+    """The hybrid and rwkv families have their static cache (held to the
+    reference in ``tests/test_torch_{hymba,rwkv6}.py``); the encoder-decoder
+    family, still to port, raises."""
+    assert "len" in tlm.cache_spec(reduce_config(get_config(arch)), 2, 16)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        tlm.cache_spec(cfg, 2, 16)
+        tlm.cache_spec(reduce_config(get_config("whisper-base")), 2, 16)

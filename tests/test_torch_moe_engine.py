@@ -158,7 +158,7 @@ def test_paged_prefill_audit_matches_jax(model, n):
     jref, jq, jstats = jax_audit(jparams, jnp.asarray(toks),
                                  jnp.asarray([n - 1], jnp.int32), jcfg)
     tref, tq, tstats = paged_step.paged_prefill_audit(
-        unstack_layers(tparams, tcfg.n_layers), torch.as_tensor(toks),
+        unstack_layers(tparams), torch.as_tensor(toks),
         torch.tensor([n - 1], dtype=torch.int32), tcfg)
     for got, want in ((tref, jref), (tq, jq)):
         want = np.asarray(want)

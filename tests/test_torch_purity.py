@@ -47,6 +47,12 @@ def test_the_walk_covers_the_fleet_and_durability_modules():
         "src/repro_torch/benchmarks/restore_bench.py"} <= names
 
 
+def test_the_walk_covers_the_family_modules():
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {f"src/repro_torch/models/{m}.py"
+            for m in ("mla", "hymba", "rwkv6")} <= names
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))

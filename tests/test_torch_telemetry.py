@@ -370,7 +370,7 @@ def test_paged_prefill_audit_matches_jax(arch, n, request, monkeypatch):
                                  jnp.asarray([n - 1], jnp.int32), jcfg)
     rec = _Recorder(monkeypatch)
     tref, tq, tstats = paged_step.paged_prefill_audit(
-        unstack_layers(tparams, tcfg.n_layers), torch.as_tensor(toks),
+        unstack_layers(tparams), torch.as_tensor(toks),
         torch.tensor([n - 1], dtype=torch.int32), tcfg)
     assert len(rec.att) == 2 * tcfg.n_layers
     for got, want in ((tref, jref), (tq, jq)):
