@@ -294,6 +294,32 @@ Phases, in order; any failure raises and exits non-zero:
    its weights and prompts, ``--engine paged`` refuses,
    ``launch.train --reduced`` takes 3 steps.
 
+32. (R) whisper-base, whole, at full width (6 + 6 layers, d 512, 8/8
+   heads of 64, d_ff 2048, vocab 51,865 padded to 51,968, 1,500 frames),
+   random bf16 weights at true fan-in, random normal stub frames (8,
+   1500, 512), 64 greedy tokens from ``<|startoftranscript|>`` into a
+   448-slot self cache through ``model_fns(cfg).prefill`` and
+   ``decode_step``: (a) under ``flash`` (K3 6 per encode, tensor cores)
+   and ``chunked`` (none), K5 6 a decode step (bulk copy), no other
+   kernel; prefill ms, ms per synced decode step, a profile of 5 decode
+   steps with K5's and the plain cross decode's shares of the busy time;
+   the two streams audited (``_forms_audit``); (b) every served step's
+   logits against ``whisper_forward`` over the grown sequence, bf16
+   within ``WHISPER_BF16_TOL`` and the same weights in float32 (K3 on
+   the CUDA cores, K5 in f32; the forward under ``chunked``) within
+   ``WHISPER_F32_TOL`` of the largest logit; (c) K3 and K4 at the
+   encoder's (1500 x 1500, non-causal), the cross attention's (448 over
+   1500, non-causal) and the decoder's (448, causal) shapes, K5 at G = 1,
+   D 64 over 448 slots, each held to its plain version within
+   ``tolerance(bf16)`` on its redesigned route, K3 at the encoder's and
+   K5 at G = 1 also in float32 within ``tolerance(float32)``, each timed
+   beside its bound and SDPA; (d) one AdamW step (fp32 master weights,
+   bf16, remat "full", B 8, 448 tokens) under ``chunked`` and ``flash``:
+   finite, the losses and gradient norms within ``WHISPER_TRAIN_TOL``,
+   each layer's attention weight gradients within ``WHISPER_GRAD_TOL``,
+   K3 36 and K4 36 under flash (tensor cores), the step time and peak
+   memory.
+
 Phase 4 also runs one engine with ``attention_impl="flash"``, whose one-shot
 prefill goes through K3.
 
@@ -760,13 +786,9 @@ def phase_full_width(dev):
     return main_counts
 
 
-def step_profile(step, n_steps: int, label: str, watch=()) -> str:
-    """Device-busy share and kernel time by name over ``n_steps`` calls of
-    ``step``, from the profiler's CUDA activity; with ``watch`` (kernel-name
-    prefixes), also those kernels' summed time and share of the busy
-    time. Only the card's activity is traced: the host's op records would
-    cost the eager loop's ~1,500 ops a step their overhead and their
-    processing, and nothing here reads them."""
+def _kernel_us(step, n_steps: int):
+    """(host wall seconds over ``n_steps`` calls of ``step``, {kernel name:
+    summed device µs}) from the profiler's CUDA activity alone."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -783,6 +805,17 @@ def step_profile(step, n_steps: int, label: str, watch=()) -> str:
             name = e.name.replace("void ", "").replace(
                 "(anonymous namespace)::", "").split("<")[0].split("(")[0]
             kern[name] = kern.get(name, 0.0) + e.time_range.elapsed_us()
+    return wall, kern
+
+
+def step_profile(step, n_steps: int, label: str, watch=()) -> str:
+    """Device-busy share and kernel time by name over ``n_steps`` calls of
+    ``step``, from the profiler's CUDA activity; with ``watch`` (kernel-name
+    prefixes), also those kernels' summed time and share of the busy
+    time. Only the card's activity is traced: the host's op records would
+    cost the eager loop's ~1,500 ops a step their overhead and their
+    processing, and nothing here reads them."""
+    wall, kern = _kernel_us(step, n_steps)
     if not kern:
         return f"{label} profile: device time not measured (no CUDA events)"
     busy = sum(kern.values()) / 1e3 / n_steps
@@ -1209,6 +1242,9 @@ def phase_train_parity(dev):
 
 # the mixers' 3-D projections, whose true fan-in the reference's init misses
 _PROJECTIONS = ("wq", "wk", "wv", "wo", "wq_b", "wk_b", "wv_b", "wr")
+# the dicts that hold them: the LM's mixer, hymba's and whisper's encoder
+# attention, whisper's decoder self and cross attention
+_MIXERS = ("mixer", "attn", "self_attn", "cross_attn")
 
 
 def _fan_in(path, shape):
@@ -1217,7 +1253,7 @@ def _fan_in(path, shape):
     dims, (d, H, k) → d for queries, keys, values and rwkv's receptance,
     (H, k, d) → H·k for an output projection."""
     if len(shape) == 3 and len(path) >= 2 and \
-            path[-2] in ("mixer", "attn") and path[-1] in _PROJECTIONS:
+            path[-2] in _MIXERS and path[-1] in _PROJECTIONS:
         return shape[0] * (shape[1] if path[-1] == "wo" else 1)
     return None
 
@@ -4347,14 +4383,16 @@ def _record_samplings(eng):
 
 
 def _card_params(cfg, dev, seed=0):
-    """Random bf16 weights of ``cfg``'s LM on the card, drawn from
+    """Random bf16 weights of ``cfg``'s model (``model_fns(cfg).schema``:
+    the LM's, or whisper's) on the card, drawn from
     ``torch.Generator(dev)`` seeded ``seed``, one layer slice at a time
     directly in bf16 (``init_params`` draws a whole leaf in f32 and then
     scales it: moonshot's stacked ``wi`` alone would take 35.4 GB, twice).
     Each leaf has its schema's distribution, the mixers' projections at
-    their true fan-in (``_fan_in``)."""
+    their true fan-in (``_fan_in``), layernorm scales at 1 and biases at
+    0."""
     import torch
-    from repro_torch.models.lm import lm_schema
+    from repro_torch.models.registry import model_fns
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def std(path, ps):
@@ -4381,7 +4419,7 @@ def _card_params(cfg, dev, seed=0):
             return {k: walk(schema[k], path + (k,)) for k in sorted(schema)}
         return leaf(path, schema)
 
-    return walk(lm_schema(cfg), ())
+    return walk(model_fns(cfg).schema, ())
 
 
 def _moe_kernel_parity(tag, dev):
@@ -5471,6 +5509,452 @@ def phase_families(dev, card):
     return times
 
 
+WHISPER_NEW = 64         # phase 32: greedy tokens decoded per request
+WHISPER_SLOTS = 448      # its self cache: whisper's decoder context
+WHISPER_START = 50258    # <|startoftranscript|>, every request's first token
+WHISPER_F32_TOL = 1e-4   # (b): served logits vs whisper_forward, float32
+WHISPER_BF16_TOL = BF16_ATOL   # (b): the same in bf16
+# (d): flash vs chunked, the loss and the gradient norm (relative; they
+# read 2.24e-5 and 4.0e-5 on the H100), and each layer's attention weight
+# gradient (relative L2, every leaf of the three attention stacks)
+WHISPER_TRAIN_TOL = 1e-3
+WHISPER_GRAD_TOL = 5e-2
+# (stack, mixer) of whisper's three attention kinds
+_WHISPER_ATTN = (("enc_blocks", "attn"), ("dec_blocks", "self_attn"),
+                 ("dec_blocks", "cross_attn"))
+
+
+def _whisper_serve(tag, label, cfg, params, frames, dev, card):
+    """The serving loop over ``model_fns(cfg)``: ``prefill`` (encode, cross
+    K/V), then ``WHISPER_NEW`` greedy ``decode_step``s from the start token
+    into ``WHISPER_SLOTS`` self-cache slots, each synced and timed, the
+    launch counts set to 0 just before (after an untimed prefill and step
+    at the same shapes: the first calls' set-up stays out of the times).
+    Returns (tokens (B, T) numpy, each step's logits, the cache, the last
+    tokens)."""
+    import numpy as np
+    import torch
+    from repro_torch.models.registry import model_fns
+    fns = model_fns(cfg)
+    B, V = frames.shape[0], cfg.vocab_size
+    start = torch.full((B,), WHISPER_START, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        fns.decode_step(params, start, fns.prefill(
+            params, {"frames": frames}, WHISPER_SLOTS)[1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        _, cache = fns.prefill(params, {"frames": frames}, WHISPER_SLOTS)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        tok, toks, logits, ms = start, [], [], []
+        for _ in range(WHISPER_NEW):
+            t0 = time.perf_counter()
+            lg, cache = fns.decode_step(params, tok, cache)
+            tok = lg[:, :V].argmax(-1).to(torch.int32)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            toks.append(tok)
+            logits.append(lg)
+    tokens = torch.stack(toks, 1).cpu().numpy()
+    check(tokens.shape == (B, WHISPER_NEW) and
+          all(torch.isfinite(lg).all().item() for lg in logits),
+          f"whisper {label}: tokens {tokens.shape}, or non-finite logits")
+    print(f"{tag} {label}: prefill (encode + cross K/V) {prefill_ms:.1f} ms;"
+          f" {WHISPER_NEW} decode steps {np.mean(ms):.2f} ms per synced step "
+          f"(min {min(ms):.2f}, max {max(ms):.2f}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; {card}")
+    return tokens, logits, cache, tok
+
+
+def _whisper_forward_errors(params, cfg, frames, tokens, logits, dev):
+    """Each served step's logits against ``whisper_forward`` over the start
+    token and the served tokens, at the same position: max |diff| over
+    the largest |logit| of the step."""
+    import numpy as np
+    import torch
+    from repro_torch.models.whisper import whisper_forward
+    V = cfg.vocab_size
+    grown = np.concatenate([np.full((len(tokens), 1), WHISPER_START,
+                                    np.int32), tokens[:, :-1]], 1)
+    with torch.no_grad():
+        fwd = whisper_forward(params, frames, torch.as_tensor(
+            grown, device=dev), cfg)
+    return [_rel(lg[:, :V], fwd[:, s, :V]) for s, lg in enumerate(logits)]
+
+
+def _whisper_kernels(tag, dev, card):
+    """(c) K3 and K4 at the encoder's (8 x 8 heads, 1500 x 1500, D 64,
+    non-causal), the cross attention's (448 queries over 1500 keys,
+    non-causal) and the decoder's (448 x 448, causal) shapes, K5 at G = 1,
+    D 64 over 448 slots, in bf16: each against its plain version within
+    ``tolerance(bf16)``, on its redesigned route (tensor cores, bulk copy).
+    The float32 serve of (b) runs K3 on the CUDA cores at the encoder's
+    shape and K5 at G = 1 in float32: both held the same way within
+    ``tolerance(float32)``, K3 off the tensor cores, K5 on the bulk copy.
+    Each one's device ms (CUDA events, L2 flushed) beside the plain
+    version's, the bound (at its dtype's peak) and SDPA with scale ln 2
+    (autograd's backward for K4). Timing and comparison launches do not
+    count."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_plain)
+    from repro_torch.kernels.flash_decode import decode_ref, flash_decode
+    from repro_torch.kernels.parity import parity_error, tolerance
+    saved = _save_counts()
+    bf, f32 = torch.bfloat16, torch.float32
+    tol = tolerance(bf)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rng = np.random.default_rng(32)
+    B, H, D, F_, S = 8, 8, 64, 1500, WHISPER_SLOTS
+    out = {"flash_attention": {}, "flash_attention_bwd": {},
+           "flash_decode": {}}
+
+    def entry(err, ms, plain, nbytes, flops, lib, peak="bfloat16"):
+        t_b = nbytes / HBM_BYTES_PER_S * 1e3
+        t_o = flops / PEAK_FLOPS[peak] * 1e3
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": max(t_b, t_o),
+                "bound_by": "bytes" if t_b >= t_o else "operations",
+                "library_ms": lib}
+
+    for name, sq, sk, causal in (("encoder", F_, F_, False),
+                                 ("cross", S, F_, False),
+                                 ("decoder", S, S, True)):
+        q = _rand(rng, (B, H, sq, D), D ** -0.5).to(dev, bf)
+        k = _rand(rng, (B, H, sk, D)).to(dev, bf)
+        v = _rand(rng, (B, H, sk, D)).to(dev, bf)
+        do = _rand(rng, (B, H, sq, D)).to(dev, bf)
+        tc0 = _flash_tc_counts()
+        o, m, d = flash_attention(q, k, v, causal=causal, return_stats=True)
+        grads = flash_attention_bwd(q, k, v, o, do, m, d, causal=causal)
+        check(tuple(b - a for a, b in zip(tc0, _flash_tc_counts())) ==
+              (1, 2), f"whisper {name} shape: K3/K4 not on the tensor cores")
+        err3, held3 = parity_error(o, flash_attention_plain(
+            q, k, v, causal=causal))
+        err4, held4 = map(max, zip(*(parity_error(g, w) for g, w in zip(
+            grads, flash_attention_bwd_plain(q, k, v, o, do, m, d,
+                                             causal=causal)))))
+        check(held3 <= tol and held4 <= tol,
+              f"whisper {name} shape: K3 {err3} ({held3}), K4 {err4} "
+              f"({held4}) > {tol}")
+        pairs = B * H * (sq * (sq + 1) // 2 if causal else sq * sk)
+
+        def sdpa(a, b_, c, causal=causal):
+            return F.scaled_dot_product_attention(a, b_, c, is_causal=causal,
+                                                  scale=math.log(2))
+
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        lo = sdpa(ql, kl, vl)
+        qb, kvb = q.numel() * 2, k.numel() * 2
+        stats = 2 * B * H * sq * 4
+        out["flash_attention"][name] = entry(
+            err3, _time_ms(lambda: flash_attention(
+                q, k, v, causal=causal, return_stats=True), flush, iters=10),
+            _time_ms(lambda: flash_attention_plain(q, k, v, causal=causal),
+                     flush, iters=3),
+            2 * qb + 2 * kvb + stats, 4 * D * pairs,
+            _time_ms(lambda: sdpa(q, k, v), flush, iters=10))
+        out["flash_attention_bwd"][name] = entry(
+            err4, _time_ms(lambda: flash_attention_bwd(
+                q, k, v, o, do, m, d, causal=causal), flush, iters=10),
+            _time_ms(lambda: flash_attention_bwd_plain(
+                q, k, v, o, do, m, d, causal=causal), flush, iters=3),
+            4 * qb + 4 * kvb + stats, 10 * D * pairs,
+            _time_ms(lambda: torch.autograd.grad(lo, (ql, kl, vl), do,
+                                                 retain_graph=True),
+                     flush, iters=10))
+        del q, k, v, do, o, m, d, grads, ql, kl, vl, lo
+    # K3 in float32 at the encoder's shape: the CUDA-core kernel
+    q = _rand(rng, (B, H, F_, D), D ** -0.5).to(dev, f32)
+    k = _rand(rng, (B, H, F_, D)).to(dev, f32)
+    v = _rand(rng, (B, H, F_, D)).to(dev, f32)
+    k3_0, tc0 = _flash_counts()[0], _flash_tc_counts()[0]
+    got = flash_attention(q, k, v, causal=False)
+    check(_flash_counts()[0] == k3_0 + 1 and _flash_tc_counts()[0] == tc0,
+          "whisper float32 encoder shape: K3 not on the CUDA cores")
+    err3, held3 = parity_error(got, flash_attention_plain(q, k, v,
+                                                          causal=False))
+    check(held3 <= tolerance(f32), f"whisper float32 encoder shape: K3 "
+                                   f"{err3} > {tolerance(f32)}")
+    pairs = B * H * F_ * F_
+    out["flash_attention"]["encoder_f32"] = entry(
+        err3, _time_ms(lambda: flash_attention(q, k, v, causal=False), flush,
+                       iters=5),
+        _time_ms(lambda: flash_attention_plain(q, k, v, causal=False), flush,
+                 iters=3),
+        2 * q.numel() * 4 + 2 * k.numel() * 4, 4 * D * pairs,
+        _time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=math.log(2)), flush, iters=5), peak="float32")
+    del q, k, v, got
+    # K5: one token a row over the self cache, G = 1, in bf16 and float32
+    n = WHISPER_NEW       # the main path's last step reads 64 rows a row
+    for name, dt in (("bf16", bf), ("float32", f32)):
+        q = _rand(rng, (B, H, D), D ** -0.5).to(dev, dt)
+        k = _rand(rng, (B, H, S, D)).to(dev, dt)
+        v = _rand(rng, (B, H, S, D)).to(dev, dt)
+        errs = []
+        for lens in ([1, 2, 63, 64, 65, 200, 447, 448], [n] * B):
+            ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+            b0 = _route_counts()[0]
+            got = flash_decode(q, k, v, ln)
+            check(_route_counts()[0] == b0 + 1,
+                  f"whisper K5 {name}: not on the bulk-copy route")
+            errs.append(parity_error(got, decode_ref(q, k, v, ln)))
+        err5, held5 = map(max, zip(*errs))
+        check(held5 <= tolerance(dt),
+              f"whisper K5 {name}: {err5} ({held5}) > {tolerance(dt)}")
+
+        def sdpa5(q=q, k=k, v=v):
+            return F.scaled_dot_product_attention(
+                q[:, :, None], k[:, :, :n], v[:, :, :n], scale=math.log(2))
+
+        size = k.element_size()
+        out["flash_decode"][name] = entry(
+            err5, _time_ms(lambda: flash_decode(q, k, v, ln), flush),
+            _time_ms(lambda: decode_ref(q, k, v, ln), flush),
+            2 * B * H * n * D * size + 2 * q.numel() * size + B * 4,
+            4 * B * H * n * D, _time_ms(sdpa5, flush),
+            peak="bfloat16" if dt == bf else "float32")
+        del q, k, v, got
+    _restore_counts(saved)
+    for kname, shapes in out.items():
+        for shape, e in shapes.items():
+            where = f"{n} of {S} rows, {shape}" if kname == "flash_decode" \
+                else f"the {shape} shape"
+            t = tolerance(f32 if shape in ("encoder_f32", "float32") else bf)
+            print(f"{tag} (c) {kname} at {where}: {e['ms']:.4f} ms"
+                  f" (plain {e['plain_ms']:.4f}, bound {e['bound_ms']:.4f} by"
+                  f" {e['bound_by']}, SDPA {e['library_ms']:.4f}; max |err| "
+                  f"{e['max_abs_err']:.3g}, within {t}); {card}")
+    return out
+
+
+def phase_whisper(dev, card):
+    """32. (R) whisper-base, whole, at full width. Returns this path's
+    readings of K3, K4 and K5 for the ``kernels`` line."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models.registry import get_config, model_fns
+    from repro_torch.models.schema import tree_map
+    from repro_torch.models.whisper import _cross_decode
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_loss_and_grad, make_train_step
+    tag = "[32]"
+    t_phase = time.perf_counter()
+    cfg = get_config("whisper-base")
+    V, L, B = cfg.vocab_size, cfg.n_layers, 8
+    check(L == cfg.n_enc_layers == 6 and cfg.d_model == 512 and
+          cfg.padded_vocab == 51968 and cfg.enc_positions == 1500,
+          f"whisper-base config: {cfg}")
+    params = _drawn(tag, f"(a) whisper-base, {cfg.n_enc_layers} + {L} "
+                    f"layers, d {cfg.d_model}, vocab {V} (padded "
+                    f"{cfg.padded_vocab})", cfg, dev)
+    g = torch.Generator(device=dev).manual_seed(32)
+    # the stub frontend's output: random frame embeddings
+    frames = torch.randn((B, cfg.enc_positions, cfg.d_model), generator=g,
+                         device=dev)
+
+    # -- (a) encode and serve, under flash and chunked ----------------------
+    runs = {}
+    k3_tc = k5_bf16 = 0
+    for impl in ("flash", "chunked"):
+        c = cfg.replace(attention_impl=impl)
+        toks, logits, cache, tok = _whisper_serve(
+            tag, f"(a) {impl}, 8 x {cfg.enc_positions} frames, "
+            f"{WHISPER_NEW} new tokens", c, params, frames, dev, card)
+        counts = _all_counts()
+        k3 = L if impl == "flash" else 0
+        want = (0, 0, k3, 0, L * WHISPER_NEW, 0, 0)
+        check(counts == want and _flash_tc_counts()[0] == k3 and
+              _route_counts()[0] == counts[4],
+              f"whisper {impl}: launches (K1..K7) {counts}, want {want}; K3 "
+              f"on the tensor cores {_flash_tc_counts()[0]}, K5 on the "
+              f"bulk-copy route {_route_counts()[0]}")
+        print(f"{tag} (a) {impl}: K3 {counts[2]} (the encoder's {L} layers,"
+              f" tensor cores {_flash_tc_counts()[0]}), K5 {counts[4]} ("
+              f"{L} a decode step, bulk copy {_route_counts()[0]}), no other "
+              f"kernel")
+        runs[impl] = (toks, logits, counts)
+        k3_tc += counts[2]
+        k5_bf16 += counts[4]
+        if impl == "flash":
+            fns = model_fns(c)
+            state = [tok, cache]
+
+            def step():
+                lg, state[1] = fns.decode_step(params, state[0], state[1])
+                state[0] = lg[:, :V].argmax(-1).to(torch.int32)
+
+            hx = torch.randn((B, cfg.d_model), generator=g, device=dev
+                             ).to(c.compute_dtype_)
+            blocks = params["dec_blocks"]["cross_attn"]
+
+            def cross():
+                for i in range(L):
+                    _cross_decode({k: w[i] for k, w in blocks.items()}, hx,
+                                  cache["xk"][i], cache["xv"][i], c)
+
+            with torch.no_grad():
+                wall, kern = _kernel_us(step, 5)
+                _, ckern = _kernel_us(cross, 5)
+            ms_step = wall * 1e3 / 5
+            busy = sum(kern.values()) / 1e3 / 5
+            k5_ms = sum(v for n, v in kern.items() if n.startswith(
+                ("decode_bulk_kernel", "decode_kernel"))) / 1e3 / 5
+            cbusy = sum(ckern.values()) / 1e3 / 5
+            top = sorted(kern.items(), key=lambda kv: -kv[1])[:5]
+            print(f"{tag} (a) decode profile over 5 steps (batch 8, self "
+                  f"cache at {WHISPER_NEW}-{WHISPER_NEW + 5} of "
+                  f"{WHISPER_SLOTS}): {ms_step:.2f} ms per step, device busy "
+                  f"{busy:.3f} ms ({100 * busy / ms_step:.0f}%); K5 "
+                  f"{k5_ms:.3f} ms ({100 * k5_ms / busy:.1f}% of busy); the "
+                  f"plain cross decode's {L} layers alone (8 x 1500 static "
+                  f"rows a layer) {cbusy:.3f} ms busy "
+                  f"({100 * cbusy / busy:.1f}% of a step's busy time); by "
+                  f"kernel (ms per step): " + ", ".join(
+                      f"{n} {v / 5e3:.3f}" for n, v in top) + f"; {card}")
+        del cache, logits
+        _free()
+    print(f"{tag} (a) " + _forms_audit(
+        tag, "flash vs chunked encoder", runs["chunked"][0],
+        runs["flash"][0], runs["chunked"][1], runs["flash"][1], V))
+
+    # -- (b) served logits against the teacher-forced forward ---------------
+    c = cfg.replace(attention_impl="flash")
+    errs = _whisper_forward_errors(params, c, frames, runs["flash"][0],
+                                   runs["flash"][1], dev)
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    check(errs[worst] <= WHISPER_BF16_TOL,
+          f"whisper bf16: served logits vs whisper_forward at step {worst}: "
+          f"{errs[worst]} of the largest logit > {WHISPER_BF16_TOL}")
+    del runs
+    p32 = tree_map(lambda a: a.float(), params)
+    c32 = c.replace(compute_dtype="float32")
+    toks, logits, _, _ = _whisper_serve(
+        tag, "(b) float32, flash", c32, p32, frames, dev, card)
+    counts = _all_counts()
+    check(counts == (0, 0, L, 0, L * WHISPER_NEW, 0, 0) and
+          _flash_tc_counts()[0] == 0 and _route_counts()[0] == counts[4],
+          f"whisper float32: launches (K1..K7) {counts}, K3 on the tensor "
+          f"cores {_flash_tc_counts()[0]} (want 0: f32 takes the CUDA "
+          f"cores), K5 on the bulk-copy route {_route_counts()[0]}")
+    k3_f32, k5_f32 = counts[2], counts[4]
+    # the float32 reference runs chunked: no kernel, so the served path's
+    # encoder (K3 on the CUDA cores) is held to code that shares none
+    errs32 = _whisper_forward_errors(
+        p32, c32.replace(attention_impl="chunked"), frames, toks, logits, dev)
+    w32 = max(range(len(errs32)), key=errs32.__getitem__)
+    check(errs32[w32] <= WHISPER_F32_TOL,
+          f"whisper float32: served logits vs whisper_forward (chunked) at "
+          f"step {w32}: {errs32[w32]} of the largest logit > "
+          f"{WHISPER_F32_TOL}")
+    print(f"{tag} (b) every served step's logits vs whisper_forward over the "
+          f"grown sequence: bf16 (forward under flash) within "
+          f"{errs[worst]:.4g} of the largest logit (step {worst}; gate "
+          f"{WHISPER_BF16_TOL}), float32 (forward under chunked, no kernel)"
+          f" within {errs32[w32]:.4g} (step {w32}; gate {WHISPER_F32_TOL});"
+          f" {card}")
+    del p32, logits
+    _free()
+
+    # -- (c) the kernels at this path's shapes ------------------------------
+    out = _whisper_kernels(tag, dev, card)
+
+    # -- (d) one training step at full width ---------------------------------
+    seq = torch.randint(0, V, (B, WHISPER_SLOTS + 1), generator=g,
+                        device=dev, dtype=torch.int32)
+    batch = {"frames": frames, "tokens": seq[:, :-1], "labels": seq[:, 1:]}
+    tc = TrainConfig(total_steps=2, warmup_steps=1, learning_rate=3e-4)
+    master = tree_map(lambda a: a.float(), params)      # fp32 master weights
+    del params
+    _free()
+    rows, attn_grads = {}, {}
+    for impl in ("chunked", "flash"):
+        c = cfg.replace(attention_impl=impl, remat="full")
+        p = tree_map(torch.clone, master)
+        step = make_train_step(model_fns(c).loss, tc)
+        opt = adamw.init_state(p)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        p, opt, met = step(p, opt, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rows[impl] = ({k: float(v) for k, v in met.items()}, dt,
+                      torch.cuda.max_memory_allocated(), _flash_counts(),
+                      _flash_tc_counts())
+        check(all(math.isfinite(v) for v in rows[impl][0].values()),
+              f"whisper training, {impl}: {rows[impl][0]}")
+        del p, opt, step
+        # the gradients of the same step's master weights, for (d)'s gate
+        grads = make_loss_and_grad(model_fns(c).loss, tc)(master, batch)[2]
+        attn_grads[impl] = {(stack, mixer, w): grads[stack][mixer][w]
+                            for stack, mixer in _WHISPER_ATTN
+                            for w in ("wq", "wk", "wv", "wo")}
+        del grads
+        _free()
+    m_c, m_f = rows["chunked"][0], rows["flash"][0]
+    k34, k34_tc = rows["flash"][3], rows["flash"][4]
+    n_att = 3 * L               # encoder, decoder self and cross, a forward
+    check(k34 == (2 * n_att, 2 * n_att) and k34_tc == k34 and
+          rows["chunked"][3] == (0, 0),
+          f"whisper training: K3/K4 {k34} (tensor cores {k34_tc}), want "
+          f"{2 * n_att} each (a forward and its remat recompute; two "
+          f"backward kernels per attention); chunked {rows['chunked'][3]}")
+    rel_l = abs(m_f["loss"] - m_c["loss"]) / abs(m_c["loss"])
+    rel_g = abs(m_f["grad_norm"] - m_c["grad_norm"]) / m_c["grad_norm"]
+    check(rel_l <= WHISPER_TRAIN_TOL and rel_g <= WHISPER_TRAIN_TOL,
+          f"whisper training: flash loss {m_f['loss']} / grad norm "
+          f"{m_f['grad_norm']} vs chunked {m_c['loss']} / "
+          f"{m_c['grad_norm']} > {WHISPER_TRAIN_TOL}")
+    # each layer's attention weight gradient, flash against chunked
+    leaf_errs = {}
+    for key, gc in attn_grads["chunked"].items():
+        gf = attn_grads["flash"][key]
+        for i in range(L):
+            leaf_errs[key + (i,)] = ((gf[i] - gc[i]).norm() /
+                                     gc[i].norm()).item()
+    worst_leaf = max(leaf_errs, key=leaf_errs.get)
+    check(leaf_errs[worst_leaf] <= WHISPER_GRAD_TOL,
+          f"whisper training: flash vs chunked gradient of "
+          f"{'.'.join(map(str, worst_leaf))}: relative L2 "
+          f"{leaf_errs[worst_leaf]} > {WHISPER_GRAD_TOL}")
+    for impl, (met, dt, peak, k, _) in rows.items():
+        print(f"{tag} (d) one AdamW step, {impl}, B {B}, {WHISPER_SLOTS} "
+              f"decoder tokens, {cfg.enc_positions} frames, remat full: loss "
+              f"{met['loss']:.5f}, grad norm {met['grad_norm']:.4f}, "
+              f"{dt:.3f} s, peak memory {peak / 2 ** 30:.2f} GiB, K3 {k[0]}, "
+              f"K4 {k[1]}; {card}")
+    by_stack = {sm: max(e for k, e in leaf_errs.items() if k[:2] == sm)
+                for sm in _WHISPER_ATTN}
+    print(f"{tag} (d) flash vs chunked: loss rel diff {rel_l:.3g}, grad norm "
+          f"rel diff {rel_g:.3g} (gate {WHISPER_TRAIN_TOL} each); the "
+          f"attention weights' gradients, largest relative L2 of a layer's "
+          f"leaf: " + ", ".join(f"{'.'.join(sm)} {e:.3g}"
+                                for sm, e in by_stack.items()) +
+          f" (worst {'.'.join(map(str, worst_leaf))}; gate "
+          f"{WHISPER_GRAD_TOL}); {card}")
+    del master, batch, frames
+    _free()
+    print(f"{tag} phase time {time.perf_counter() - t_phase:.1f} s; {card}")
+    # the tensor-core launches (bf16 serve and training) and the float32
+    # serve's CUDA-core ones, each beside the readings of its own route
+    out["flash_attention"]["launches"] = k3_tc + k34[0]
+    out["flash_attention"]["encoder_f32"]["launches"] = k3_f32
+    out["flash_attention_bwd"]["launches"] = k34[1]
+    out["flash_decode"]["bf16"]["launches"] = k5_bf16
+    out["flash_decode"]["float32"]["launches"] = k5_f32
+    return out
+
+
 def _row(name, src, replaces, launches, per_step, err, ms, plain, nbytes,
          flops, library=None, peak="bfloat16"):
     """One kernel's entry of the ``kernels`` line; ``peak`` names the rate
@@ -5564,12 +6048,15 @@ def main() -> int:
     phase_fleet(dev, card)
     moe_path = phase_moe(dev, card)
     family_path = phase_families(dev, card)
+    whisper_path = phase_whisper(dev, card)
     for k in kernels:
         k["card"] = card
         if k["name"] in moe_path:
             k["moe"] = moe_path[k["name"]]
         if k["name"] in family_path:
             k["families"] = family_path[k["name"]]
+        if k["name"] in whisper_path:
+            k["whisper"] = whisper_path[k["name"]]
         lib = "" if k["library_ms"] is None else \
             f", library {k['library_ms']:.4f} ms"
         if "earlier_ms" in k:

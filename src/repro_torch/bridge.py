@@ -9,7 +9,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.lm import lm_schema
+from repro_torch.models.registry import model_fns
 from repro_torch.models.schema import tree_map
 
 
@@ -22,8 +22,10 @@ def tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:
 
 
 def params_from_numpy(tree, cfg: ModelConfig, device="cpu"):
-    """Convert a numpy parameter tree, checking it against ``lm_schema``."""
-    schema = lm_schema(cfg)
+    """Convert a numpy parameter tree, checking it against the family's
+    schema (``model_fns(cfg).schema``: ``lm_schema``, or ``whisper_schema``
+    at the registry's decoder positions)."""
+    schema = model_fns(cfg).schema
 
     def check(ps, a):
         if tuple(a.shape) != tuple(ps.shape):

@@ -53,6 +53,9 @@ up what happened.
 Every decoder-only family serves on the static engine (the MLA, rwkv and
 hybrid families only there: ``--engine paged`` refuses them, as the
 reference does); ``--optimized`` also turns on ``opt_mla_absorbed``.
+``--arch whisper-base`` is refused with a ValueError: the encoder-decoder
+family's prefill reads audio frames, not prompts
+(``registry.check_decoder_only``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
         --reduced --device cpu --batch 2 --prompt-len 20 --max-new 6
@@ -72,8 +75,9 @@ import numpy as np
 import torch
 
 from repro_torch.models.lm import cast_matrix_params
-from repro_torch.models.registry import (GRID_ARCHS, get_config,
-                                         init_lm_params, reduce_config)
+from repro_torch.models.registry import (GRID_ARCHS, check_decoder_only,
+                                         get_config, init_lm_params,
+                                         reduce_config)
 from repro_torch.serve import (ContinuousEngine, EngineGuard,
                                EngineSheddingError, FaultInjector, FaultPlan,
                                FleetSupervisor, Journal, Router, ServeEngine,
@@ -256,6 +260,7 @@ def main(argv=None) -> None:
         cfg = reduce_config(cfg)
     if args.optimized:
         cfg = cfg.with_opts(True)
+    check_decoder_only(cfg, "launch.serve")   # before the weights are drawn
     if args.engine == "paged":
         check_paged_support(cfg)        # before the weights are drawn
     params = init_lm_params(

@@ -14,6 +14,8 @@ versions instead (with ``--reduced`` for a CPU-sized model). Weights are
 random, drawn from ``torch.Generator(device).manual_seed(0)``; batches come
 from the numpy ``SyntheticLMData`` (seed 0). ``--production-mesh`` and
 ``--multi-pod`` need the port of ``parallel/`` and raise until then.
+``--arch whisper-base`` is refused with a ValueError: its loss reads audio
+frames, which the token data has not (``registry.check_decoder_only``).
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ import torch
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.data import SyntheticLMData
-from repro_torch.models.registry import (GRID_ARCHS, get_config, model_fns,
+from repro_torch.models.registry import (GRID_ARCHS, check_decoder_only,
+                                         get_config, model_fns,
                                          reduce_config)
 from repro_torch.train import make_train_step, train
 from repro_torch.utils.device import resolve_device
@@ -64,6 +67,7 @@ def main(argv=None) -> dict:
         cfg = reduce_config(cfg)
     if args.optimized:
         cfg = cfg.with_opts(True)
+    check_decoder_only(cfg, "launch.train")   # SyntheticLMData has no frames
 
     fns = model_fns(cfg)
     params = fns.init(torch.Generator(device=device).manual_seed(0))

@@ -1,8 +1,9 @@
 """Attention with Softermax (the dense subset of the JAX package's
 ``repro.models.attention``).
 
-``attention_apply`` (train and one-shot prefill) selects the
-implementation by ``cfg.attention_impl``:
+``attention_apply`` (train and one-shot prefill; self attention, or cross
+attention over ``x_kv`` for whisper's decoder) selects the implementation
+by ``cfg.attention_impl``:
 
 * ``chunked`` — the online Softermax state (running IntMax, running
   denominator, accumulator) carried over KV chunks in plain torch;
@@ -29,7 +30,6 @@ into the q scale (``_mode``).
 """
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import torch
@@ -39,7 +39,8 @@ from repro_torch.core.numerics import LOG2_E, NEG_INF
 from repro_torch.core.softermax import attention_softmax
 from repro_torch.kernels.flash_attention import flash_attention_op
 from repro_torch.kernels.flash_decode import flash_decode_op
-from repro_torch.models.layers import apply_rope, rmsnorm, rope, rope_cos_sin
+from repro_torch.models.layers import (apply_rope, rmsnorm, rope,
+                                       rope_cos_sin, round_to)
 from repro_torch.models.schema import ParamSpec
 
 
@@ -80,32 +81,31 @@ def q_scale(q: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return q * round_to(premult * cfg.head_dim_ ** -0.5, q.dtype)
 
 
-@functools.lru_cache(maxsize=64)
-def round_to(x: float, dtype: torch.dtype) -> float:
-    """A Python scalar rounded to ``dtype`` (on the host: a device scalar
-    would cost a stream-synchronizing copy)."""
-    return torch.tensor(x, dtype=dtype).item()
-
-
 def proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum('...d,dhk->...hk')``: x (..., d) @ w (d, H, k)."""
     d, H, k = w.shape
     return (x @ w.reshape(d, H * k)).unflatten(-1, (H, k))
 
 
-def _project_qkv(params, x, cfg: ModelConfig, positions):
-    """Q/K/V projections + qk-norm + RoPE. x: (B, S, d) → (B, H, S, Dh)."""
+def _project_qkv(params, x, cfg: ModelConfig, positions, x_kv=None,
+                 kv_positions=None):
+    """Q/K/V projections + qk-norm + RoPE. x: (B, S, d) → (B, H, S, Dh).
+    Cross attention (``x_kv`` (B, Sk, d)): k and v from ``x_kv``, RoPE
+    only where ``kv_positions`` gives the keys' positions, as in the
+    reference."""
     dt = cfg.compute_dtype_
+    src = x if x_kv is None else x_kv
     q = proj_heads(x, params["wq"].to(dt)).transpose(1, 2)
-    k = proj_heads(x, params["wk"].to(dt)).transpose(1, 2)
-    v = proj_heads(x, params["wv"].to(dt)).transpose(1, 2)
+    k = proj_heads(src, params["wk"].to(dt)).transpose(1, 2)
+    v = proj_heads(src, params["wv"].to(dt)).transpose(1, 2)
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
-    if cfg.rope_theta > 0:
-        pos = positions[:, None, :]          # (B, 1, S) broadcast over heads
-        q = rope(q, pos, cfg.rope_theta)
-        k = rope(k, pos, cfg.rope_theta)
+    k_pos = positions if x_kv is None else kv_positions
+    if cfg.rope_theta > 0 and k_pos is not None:
+        # (B, 1, S) broadcast over heads
+        q = rope(q, positions[:, None, :], cfg.rope_theta)
+        k = rope(k, k_pos[:, None, :], cfg.rope_theta)
     return q, k, v
 
 
@@ -200,14 +200,22 @@ def _naive_attention(q, k, v, cfg: ModelConfig, *, causal: bool,
 
 def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor, causal: bool = True,
-                    window: int = 0, return_kv: bool = False):
-    """Self attention for train and prefill. x (B, S, d) → y (B, S, d), and
-    with ``return_kv`` also the cacheable (k, v) (B, Hkv, S, Dh).
+                    window: int = 0, x_kv=None, kv_positions=None,
+                    return_kv: bool = False):
+    """Self (or cross) attention for train and prefill. x (B, S, d) → y
+    (B, S, d), and with ``return_kv`` also the cacheable (k, v) (B, Hkv,
+    Sk, Dh).
+
+    Cross attention (``x_kv`` (B, Sk, d), whisper's decoder): q from x, k
+    and v from ``x_kv``; qk-norm as for self attention, RoPE only where
+    ``kv_positions`` gives the keys' positions; never causal.
 
     As in the reference, the ``flash`` impl ignores ``window`` (the kernel
     has no window mask); ``chunked`` honours it."""
     _, intmax = _mode(cfg)
-    q, k, v = _project_qkv(params, x, cfg, positions)
+    q, k, v = _project_qkv(params, x, cfg, positions, x_kv, kv_positions)
+    if x_kv is not None:
+        causal = False
     q = q_scale(q, cfg)
     impl = cfg.attention_impl
     if cfg.softmax_impl == "softermax_fixed":

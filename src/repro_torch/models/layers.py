@@ -1,5 +1,5 @@
-"""Shared neural-net layers: norms, MLPs, embeddings, rotary embeddings,
-the cross-entropy loss.
+"""Shared neural-net layers: RMS and Layer norms, MLPs, embeddings, rotary
+and sinusoidal positions, the cross-entropy loss.
 
 Functional, as in the JAX package: ``*_schema`` returns ParamSpecs, the
 apply functions take the parameter tensors. Compute runs in
@@ -27,6 +27,25 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(dt)
+
+
+def layernorm_schema(dim: int, logical: str = "embed"):
+    return {
+        "scale": ParamSpec((dim,), (logical,), init="ones"),
+        "bias": ParamSpec((dim,), (logical,), init="zeros"),
+    }
+
+
+def layernorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in fp32, returned in the input dtype. ``scale`` and
+    ``bias`` enter as they are stored: an fp32 ``y`` times a bf16 scale
+    promotes to fp32 in both frameworks."""
+    dt = x.dtype
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"] + params["bias"]).to(dt)
 
 
 def mlp_schema(d_model: int, d_ff: int, gated: bool = True):
@@ -80,6 +99,13 @@ def logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return (x @ w).float()
 
 
+@functools.lru_cache(maxsize=64)
+def round_to(x: float, dtype: torch.dtype) -> float:
+    """A Python scalar rounded to ``dtype`` (on the host: a device scalar
+    would cost a stream-synchronizing copy)."""
+    return torch.tensor(x, dtype=dtype).item()
+
+
 @functools.lru_cache(maxsize=16)
 def _rope_freqs(theta: float, half: int, device: torch.device):
     """``exp(-log θ · i / half)`` in fp32, computed once per (θ, width,
@@ -114,6 +140,19 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     The JAX package's own frequency formula, ``exp(-log θ · i / half)`` in
     fp32 (not torch's usual ``θ^(-2i/d)``), so the angles agree."""
     return apply_rope(x, *rope_cos_sin(positions, theta, x.shape[-1] // 2))
+
+
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """The fixed sinusoidal table (n, d) fp32 of whisper's encoder: sin in
+    the even columns, cos in the odd ones, at angle ``pos / 10000 **
+    (dim / d)`` computed in fp32."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / torch.pow(torch.tensor(10000.0, device=device), dim / d)
+    pe = torch.zeros((n, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(angle)
+    pe[:, 1::2] = torch.cos(angle)
+    return pe
 
 
 def cross_entropy_loss(lg: torch.Tensor, labels: torch.Tensor,

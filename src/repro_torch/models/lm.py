@@ -5,7 +5,8 @@ One definition serves the dense and MoE GQA families, MoE with MLA
 (deepseek-v2), RWKV6 and the hybrid attention+Mamba family (hymba); the
 per-layer mixer and FFN are chosen by ``cfg`` as in the JAX package
 (``models/mla.py``, ``models/rwkv6.py``, ``models/hymba.py``). The
-encoder-decoder family (whisper) is not ported yet.
+encoder-decoder family (whisper) has its own model, ``models/whisper.py``;
+the functions here refuse it.
 
 ``lm_schema`` has the JAX package's tree structure and shapes, with each
 layer stack on a leading ``(n_layers, …)`` axis; the MoE family's
@@ -68,8 +69,8 @@ F32_LEAVES = ("u", "out_norm", "a_log")
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family == "encdec":
         raise NotImplementedError(
-            "family 'encdec' (whisper) is not ported yet "
-            "(ROADMAP Queue 1 item 5)")
+            "family 'encdec' (whisper) is not a decoder-only LM: its model "
+            "is models/whisper.py, through registry.model_fns")
 
 
 def _mixer_schema(cfg: ModelConfig):
@@ -210,15 +211,21 @@ def _scan_blocks(blocks, x, cfg: ModelConfig, positions, dense_ffn=False):
 
 
 def lm_forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
-               positions=None) -> Tuple[torch.Tensor, torch.Tensor]:
+               positions=None, prefix_embeds=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) → (logits (B, S, V_padded) fp32, aux loss scalar: the
-    MoE layers' summed aux, 0 for the other families)."""
+    MoE layers' summed aux, 0 for the other families). ``prefix_embeds``
+    (B, P, d), the vision-language stub (pixtral's patch embeddings), take
+    the place of the first P embedded rows, cast to the compute dtype."""
     B, S = tokens.shape
     params = maybe_cast_params(params, cfg)
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device).expand(B, S)
     x = embed(params["embed"], tokens, cfg)
+    if prefix_embeds is not None:
+        P = prefix_embeds.shape[1]
+        x = torch.cat([prefix_embeds.to(x.dtype), x[:, P:]], dim=1)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for name, blocks in _stacks(params):
         x, a = _scan_blocks(blocks, x, cfg, positions,

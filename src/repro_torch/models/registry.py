@@ -1,6 +1,7 @@
 """Architecture registry: ``--arch <id>`` → config; reduced CPU configs;
-parameter init and the uniform model interface (``model_fns``) for the
-decoder-only LMs (dense, MoE, MLA, rwkv and hybrid families)."""
+parameter init and the uniform model interface (``model_fns``) over the
+two model assemblies: the decoder-only LM (dense, MoE, MLA, rwkv and hybrid
+families) and the encoder-decoder whisper."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,6 +12,7 @@ import torch
 
 from repro_torch.configs.base import MLAConfig, ModelConfig, SSMConfig
 from repro_torch.models import lm as lm_mod
+from repro_torch.models import whisper as whisper_mod
 from repro_torch.models.lm import lm_schema
 from repro_torch.models.schema import init_params
 
@@ -82,21 +84,64 @@ def init_lm_params(cfg: ModelConfig, generator: torch.Generator):
     return init_params(lm_schema(cfg), generator, cfg.param_dtype_)
 
 
+# decoder positions of whisper's schema: the reference's registry sizes
+# the table for its longest decode and training cells
+MAX_DEC_POSITIONS = 33024
+
+
+def check_decoder_only(cfg: ModelConfig, what: str) -> None:
+    """Refuse the encoder-decoder family where only prompts come in (the
+    engines, the launchers): its prefill reads audio frames."""
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"{what}: the encoder-decoder family ({cfg.name}) takes audio "
+            "frames, not prompts alone; serve it by composing "
+            "model_fns(cfg).prefill (frames in) and "
+            "model_fns(cfg).decode_step, train it through "
+            "model_fns(cfg).loss on batches with 'frames'")
+
+
 def model_fns(cfg: ModelConfig) -> SimpleNamespace:
-    """The decoder-only families' uniform interface, as in the JAX
-    registry: ``schema``, ``init(generator)`` (parameters on
-    ``generator.device``), ``loss(params, batch)`` (``lm_loss``: cross
+    """The uniform interface, as in the JAX registry: ``schema``,
+    ``init(generator)`` (parameters on ``generator.device``),
+    ``forward(params, batch)`` (logits), ``loss(params, batch)`` (cross
     entropy with its own z-loss weight, as the reference's registry keeps
     it, plus the MoE layers' aux loss; metrics ``{"ce", "aux"}``), and the
-    static engine's ``prefill(params, batch, max_len)``,
+    serving steps ``prefill(params, batch, max_len)``,
     ``decode_step(params, tokens1, cache)`` and ``cache_spec(batch,
-    max_len)``. The encoder-decoder family (whisper) raises
-    ``NotImplementedError`` until it is ported."""
+    max_len)``.
+
+    The encoder-decoder family (whisper) reads ``batch["frames"]`` (B,
+    ``cfg.enc_positions``, d) besides the tokens; its ``prefill`` returns
+    ``(None, cache)``: the encoder output's cross K/V and an empty self
+    cache, no logits. The decoder-only families' ``prefill`` returns the
+    last prompt token's logits and the cache (the static engine's steps)."""
+    if cfg.family == "encdec":
+        schema = whisper_mod.whisper_schema(
+            cfg, max_dec_positions=MAX_DEC_POSITIONS)
+        return SimpleNamespace(
+            schema=schema,
+            init=lambda generator: init_params(schema, generator,
+                                               cfg.param_dtype_),
+            forward=lambda p, batch: whisper_mod.whisper_forward(
+                p, batch["frames"], batch["tokens"], cfg),
+            loss=lambda p, batch: whisper_mod.whisper_loss(p, batch, cfg),
+            prefill=lambda p, batch, max_len: (
+                None, whisper_mod.whisper_prefill(
+                    p, batch["frames"], cfg, batch["frames"].shape[0],
+                    max_len)),
+            decode_step=lambda p, tok1, cache:
+                whisper_mod.whisper_decode_step(p, tok1, cache, cfg),
+            cache_spec=lambda batch, max_len: whisper_mod.whisper_cache_spec(
+                cfg, batch, max_len, cfg.enc_positions),
+        )
     schema = lm_schema(cfg)
     return SimpleNamespace(
         schema=schema,
         init=lambda generator: init_params(schema, generator,
                                            cfg.param_dtype_),
+        forward=lambda p, batch: lm_mod.lm_forward(p, batch["tokens"],
+                                                   cfg)[0],
         loss=lambda p, batch: lm_mod.lm_loss(p, batch, cfg),
         prefill=lambda p, batch, max_len: lm_mod.lm_prefill(
             p, batch["tokens"], cfg, max_len),

@@ -56,7 +56,8 @@ def stack_schema(schema: Schema, n_layers: int) -> Schema:
                                          ps.init, ps.std), schema)
 
 
-STACKS = ("head_blocks", "blocks")      # layer stacks, in forward order
+# layer stacks: the LM's in forward order, then whisper's encoder and decoder
+STACKS = ("head_blocks", "blocks", "enc_blocks", "dec_blocks")
 
 
 def n_stacked(blocks) -> int:

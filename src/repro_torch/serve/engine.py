@@ -37,6 +37,11 @@ quarantine, ``deadline_s``/``ttft_budget_s`` cancel overdue requests,
 faults are retried with bounded backoff. The one device read the layer
 adds is the readback audit's max logit delta.
 
+Both engines take prompts alone, so both refuse the encoder-decoder family
+(whisper), whose prefill reads audio frames: it is served by composing
+``model_fns(cfg).prefill`` and ``decode_step``, as the reference's engine
+docstring says.
+
 Both engines run on the CUDA card unless ``device`` names another device;
 without a card the default raises. Both cast the matrix weights to the
 compute dtype once at load (the same numbers the per-use casts give).
@@ -60,7 +65,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.softermax import softmax_base2
 from repro_torch.models.lm import cast_matrix_params, maybe_cast_params
-from repro_torch.models.registry import model_fns
+from repro_torch.models.registry import check_decoder_only, model_fns
 from repro_torch.models.schema import STACKS, tree_map, unstack_layers
 from repro_torch.serve.autotune import (AUTOTUNE_MODES, GridPlanner,
                                        default_candidates)
@@ -106,6 +111,7 @@ class ServeEngine:
 
     def __init__(self, cfg: ModelConfig, params, max_len: int = 512,
                  device=None):
+        check_decoder_only(cfg, "ServeEngine")
         self.cfg = cfg
         self.device = resolve_device(device)
         params = tree_map(lambda a: a.to(self.device), params)
@@ -222,6 +228,7 @@ class ContinuousEngine:
                  step_fault_retries: int = 3,
                  retry_backoff_s: float = 0.005,
                  device=None):
+        check_decoder_only(cfg, "ContinuousEngine")
         check_paged_support(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)

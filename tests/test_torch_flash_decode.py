@@ -316,8 +316,9 @@ def test_cache_spec_and_model_fns_match_jax(model):
 @pytest.mark.parametrize("arch", ["hymba-1.5b", "rwkv6-7b"])
 def test_other_families_raise_not_implemented(arch):
     """The hybrid and rwkv families have their static cache (held to the
-    reference in ``tests/test_torch_{hymba,rwkv6}.py``); the encoder-decoder
-    family, still to port, raises."""
+    reference in ``tests/test_torch_{hymba,rwkv6}.py``); the decoder-only
+    cache refuses the encoder-decoder family, whose cache is
+    ``models/whisper.py``'s (``tests/test_torch_whisper.py``)."""
     assert "len" in tlm.cache_spec(reduce_config(get_config(arch)), 2, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+    with pytest.raises(NotImplementedError, match="models/whisper.py"):
         tlm.cache_spec(reduce_config(get_config("whisper-base")), 2, 16)

@@ -273,8 +273,9 @@ def test_engine_unstacks_each_stack_by_its_length(deepseek):
 def test_refusals(deepseek):
     """The paged engine refuses MLA, as the reference's does; a GQA MoE
     config with head blocks has no static cache (the reference's gives its
-    head blocks no attention entries); whisper's ``model_fns`` waits for
-    its port."""
+    head blocks no attention entries); whisper's family has its own
+    ``model_fns`` (``models/whisper.py``): the engines and the launchers,
+    which take prompts alone, refuse it, and so does ``lm_schema``."""
     _, tcfg, _, tparams = deepseek
     with pytest.raises(ValueError, match="paged serving"):
         ContinuousEngine(tcfg, tparams, device="cpu")
@@ -283,8 +284,20 @@ def test_refusals(deepseek):
                                               d_ff_dense=64))
     with pytest.raises(NotImplementedError, match="first_dense"):
         tlm.cache_spec(gqa, 2, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        model_fns(reduce_config(get_config("whisper-base")))
+    whisper = reduce_config(get_config("whisper-base"))
+    wparams = model_fns(whisper).init(torch.Generator().manual_seed(0))
+    for refuse in (lambda: ServeEngine(whisper, wparams, device="cpu"),
+                   lambda: ContinuousEngine(whisper, wparams, device="cpu"),
+                   lambda: launch_serve.main(["--arch", "whisper-base",
+                                              "--reduced", "--device",
+                                              "cpu"]),
+                   lambda: launch_train.main(["--arch", "whisper-base",
+                                              "--reduced", "--device",
+                                              "cpu"])):
+        with pytest.raises(ValueError, match=r"model_fns\(cfg\)\.prefill"):
+            refuse()
+    with pytest.raises(NotImplementedError, match="models/whisper.py"):
+        tlm.lm_schema(whisper)
 
 
 def _served(caplog, argv):

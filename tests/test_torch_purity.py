@@ -50,7 +50,7 @@ def test_the_walk_covers_the_fleet_and_durability_modules():
 def test_the_walk_covers_the_family_modules():
     names = {str(p.relative_to(ROOT)) for p in FILES}
     assert {f"src/repro_torch/models/{m}.py"
-            for m in ("mla", "hymba", "rwkv6")} <= names
+            for m in ("mla", "hymba", "rwkv6", "whisper")} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
