@@ -195,7 +195,9 @@ Phases, in order; any failure raises and exits non-zero:
    ratios and the quantile lines. Every K1 launch on the bulk-copy route,
    every K2 launch on the tensor cores.
 28. (N) The serving engine's resilience layer at llama3.2-3b's full width
-   in bf16 with phase 13's weights and phase 5's prompts, 32 new tokens:
+   with the depth cut to its first ``RESILIENCE_LAYERS`` layers (each
+   drive's thresholds come from its own clean audit), in bf16 with phase
+   13's weights and phase 5's prompts, 32 new tokens:
    (a) the clean readback-audit deltas of every request, one-shot and
    chunked-256 prefill, bf16 and int8 pools, with how many clean requests
    the reference's default ``GuardConfig`` would quarantine; (b) the
@@ -206,7 +208,7 @@ Phases, in order; any failure raises and exits non-zero:
    invariants after every step, no leaked block, every engine fault kind
    in the log, the seven resilience counters and the guard's transitions;
    (c) the same storm unguarded: a stream diverges; (d)
-   ``resilience_bench``'s rounds at full width (its other three gates
+   ``resilience_bench``'s rounds at that width (its other three gates
    asserted, the guarded/fault-free tok/s ratio read beside its 0.70
    gate) and its CLI at the reference's reduced defaults in a child
    process (a gate it misses is printed, not fatal). Every K1 launch on
@@ -319,6 +321,29 @@ Phases, in order; any failure raises and exits non-zero:
    each layer's attention weight gradients within ``WHISPER_GRAD_TOL``,
    K3 36 and K4 36 under flash (tensor cores), the step time and peak
    memory.
+
+33. (S) ``parallel/``: (a) on a one-rank NCCL group
+   (``make_host_mesh()``): one ``make_ddp_train_step`` step with
+   ``grad_compression`` at llama3.2-3b's full width cut to
+   ``PARALLEL_LAYERS`` layers (flash, bf16, ``PARALLEL_ROWS`` x
+   ``PARALLEL_SEQ``): K3 and K4 2 a layer on the tensor cores, every
+   leaf's int8 codes and residual EQUAL to the plain quantization, the
+   step's time and the compressed all-reduce's share; K3 and K4 at that
+   step's attention shape (24/8 heads, D 128, causal) against their plain
+   versions within ``tolerance(dtype)``, in bf16 on the tensor cores and
+   in float32 (what (b) runs) on the CUDA cores, timed; ``ring_attention`` at llama3.2-3b's attention shape
+   (24/8 heads, D 128, S 4096, bf16, causal) against ``chunked_attention``,
+   output and gradients within ``RING_TOL``; ``moe_apply_shard_map`` on
+   each MoE layer of phase 30's training cut of moonshot-v1-16b-a3b (8 x
+   128 tokens) against ``_moe_apply_global`` within ``MOE_EP_TOL``, K6
+   once a call; (b) two gloo ranks sharing the card, spawned by the phase:
+   the DDP step at full width cut to ``PARALLEL_LAYERS`` layers in float32
+   (``PARALLEL_ROWS`` rows a rank) against the one-rank step on the whole
+   batch (loss, grad norm, every parameter leaf and every first-moment
+   leaf within 1e-5), the compressed step within 2 lr
+   of it, each rank's step time and all-reduce share, and whether gloo
+   takes CUDA tensors for send/recv and all_to_all (NCCL refuses two ranks
+   on one device; gloo's CUDA all_reduce is what the DDP step needs).
 
 Phase 4 also runs one engine with ``attention_impl="flash"``, whose one-shot
 prefill goes through K3.
@@ -2903,8 +2928,11 @@ BENCH_REPEATS = 2        # phase 25: rounds of each bench, cut from its
 FLEET_PROFILE_TICKS = 20  # phase 29: the fleet drive's profiled window is
 #                          ticks [20, 40), full batches while requests
 #                          still arrive (the drive takes 244 ticks)
-FLEET_LAYERS = 8         # phase 29 (a)-(b): llama3.2-3b's first 8 of 28
+FLEET_LAYERS = 4         # phase 29 (a)-(b): llama3.2-3b's first 4 of 28
 #                          layers, to keep the whole smoke in its limit
+#                          (8 until the smoke took 1,298 s on a slow host)
+RESILIENCE_LAYERS = 8    # phase 28: llama3.2-3b's first 8 of 28 layers,
+#                          for the same reason
 OVERHEAD_ROUNDS = 9      # phase 27 (c): on/off rounds of the overhead check
 
 
@@ -3513,7 +3541,8 @@ def _bench_cli(tag, name, args, what, card, cwd=ROOT, tolerate=()):
 
 def phase_resilience(dev, card):
     """(N) The serving engine's resilience layer at llama3.2-3b's full
-    width in bf16 with phase 13's weights and phase 5's prompts: (a) the
+    width, depth cut to ``RESILIENCE_LAYERS`` layers, in bf16 with phase
+    13's weights and phase 5's prompts: (a) the
     clean readback audit deltas (one-shot and chunked-256, bf16 and int8
     pools) and what the reference's default thresholds would do with
     them; (b) the canned fault plan under the guard with thresholds
@@ -3527,10 +3556,17 @@ def phase_resilience(dev, card):
     from repro_torch.serve import (ENGINE_FAULT_KINDS, ContinuousEngine,
                                    EngineGuard, FaultInjector, GuardConfig,
                                    canned_plan)
+    from repro_torch.models.schema import tree_map
     tag = "[28]"
     t_phase = time.perf_counter()
     cfg, params, _ = _full_width_llama(dev)
     V = cfg.vocab_size
+    # every drive depth cut: its thresholds come from its own clean audit
+    print(f"{tag} llama3.2-3b at full width, depth cut to its first "
+          f"{RESILIENCE_LAYERS} of {cfg.n_layers} layers")
+    cfg = cfg.replace(n_layers=RESILIENCE_LAYERS)
+    params = {**params, "blocks": tree_map(lambda a: a[:RESILIENCE_LAYERS],
+                                           params["blocks"])}
     rng = np.random.default_rng(0)           # phase 5's prompts
     lens = rng.integers(128, 1025, 8)
     prompts = [rng.integers(1, V, n).astype(np.int32) for n in lens]
@@ -3683,7 +3719,7 @@ def phase_resilience(dev, card):
     del eng
     torch.cuda.empty_cache()
 
-    # -- (d) resilience_bench at full width, then its CLI -------------------
+    # -- (d) resilience_bench at the cut depth, then its CLI --------------
     a = rb.parse_args(["--device", "cuda", "--smoke"])
     bench_prompts = rb.make_workload(a.pairs, V, a.seed)
     eng = rb.build_engine(cfg, params, max_new=a.max_new, device=dev,
@@ -3705,14 +3741,15 @@ def phase_resilience(dev, card):
         eng_base, eng_guard, bench_prompts, a.max_new, a.repeats)
     ver = rb.verify(eng_guard, eng_plain, inj_plain, bench_prompts,
                     a.max_new, base_toks)
-    k1 = _check_k1_bulk("resilience_bench at full width")
+    k1 = _check_k1_bulk("resilience_bench at the cut depth")
     # the ratio is read here; the unguarded-divergence gate is read too
     # (at full width the random weights' top-1 margin can exceed what the
     # corruption moves the logits, (c)); the other two are asserted
     failures = [f for f in rb.gate_failures(max(ratios), 0.0, ver)
                 if not f.startswith("unguarded drive did not diverge")]
     best, med = max(ratios), float(np.median(ratios))
-    print(f"{tag} (d) resilience_bench at full width ({a.pairs} pairs, "
+    print(f"{tag} (d) resilience_bench at {RESILIENCE_LAYERS} layers "
+          f"({a.pairs} pairs, "
           f"{a.max_new} new tokens, block {rb.BLOCK_SIZE}, "
           f"{rb.NUM_BLOCKS} blocks, batch {rb.MAX_BATCH}, {a.repeats} "
           f"rounds, the bench's --smoke count): guarded/fault-free tok/s best-of {best:.3f}, median "
@@ -3725,7 +3762,7 @@ def phase_resilience(dev, card):
           f"{_met(bool(ver['divergent']))}: read), invariant checks "
           f"{ver['checks']}; K1 launches {k1} (all on the bulk-copy "
           f"route); {card}")
-    check(not failures, f"resilience_bench at full width: {failures}")
+    check(not failures, f"resilience_bench at the cut depth: {failures}")
     del engines, eng_base, eng_guard, eng_plain, params
     torch.cuda.empty_cache()
     _bench_cli(tag, "resilience_bench", [], "qwen3-4b reduced, float32, 8 "
@@ -5585,6 +5622,17 @@ def _whisper_forward_errors(params, cfg, frames, tokens, logits, dev):
     return [_rel(lg[:, :V], fwd[:, s, :V]) for s, lg in enumerate(logits)]
 
 
+def _reading(err, ms, plain, nbytes, flops, lib, peak="bfloat16"):
+    """A kernel's reading at one shape of a phase's path: its error and
+    times beside the bound (``nbytes`` moved, ``flops`` at ``peak``)."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = flops / PEAK_FLOPS[peak] * 1e3
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "library_ms": lib}
+
+
 def _whisper_kernels(tag, dev, card):
     """(c) K3 and K4 at the encoder's (8 x 8 heads, 1500 x 1500, D 64,
     non-causal), the cross attention's (448 queries over 1500 keys,
@@ -5614,14 +5662,6 @@ def _whisper_kernels(tag, dev, card):
     B, H, D, F_, S = 8, 8, 64, 1500, WHISPER_SLOTS
     out = {"flash_attention": {}, "flash_attention_bwd": {},
            "flash_decode": {}}
-
-    def entry(err, ms, plain, nbytes, flops, lib, peak="bfloat16"):
-        t_b = nbytes / HBM_BYTES_PER_S * 1e3
-        t_o = flops / PEAK_FLOPS[peak] * 1e3
-        return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-                "bound_ms": max(t_b, t_o),
-                "bound_by": "bytes" if t_b >= t_o else "operations",
-                "library_ms": lib}
 
     for name, sq, sk, causal in (("encoder", F_, F_, False),
                                  ("cross", S, F_, False),
@@ -5653,14 +5693,14 @@ def _whisper_kernels(tag, dev, card):
         lo = sdpa(ql, kl, vl)
         qb, kvb = q.numel() * 2, k.numel() * 2
         stats = 2 * B * H * sq * 4
-        out["flash_attention"][name] = entry(
+        out["flash_attention"][name] = _reading(
             err3, _time_ms(lambda: flash_attention(
                 q, k, v, causal=causal, return_stats=True), flush, iters=10),
             _time_ms(lambda: flash_attention_plain(q, k, v, causal=causal),
                      flush, iters=3),
             2 * qb + 2 * kvb + stats, 4 * D * pairs,
             _time_ms(lambda: sdpa(q, k, v), flush, iters=10))
-        out["flash_attention_bwd"][name] = entry(
+        out["flash_attention_bwd"][name] = _reading(
             err4, _time_ms(lambda: flash_attention_bwd(
                 q, k, v, o, do, m, d, causal=causal), flush, iters=10),
             _time_ms(lambda: flash_attention_bwd_plain(
@@ -5683,7 +5723,7 @@ def _whisper_kernels(tag, dev, card):
     check(held3 <= tolerance(f32), f"whisper float32 encoder shape: K3 "
                                    f"{err3} > {tolerance(f32)}")
     pairs = B * H * F_ * F_
-    out["flash_attention"]["encoder_f32"] = entry(
+    out["flash_attention"]["encoder_f32"] = _reading(
         err3, _time_ms(lambda: flash_attention(q, k, v, causal=False), flush,
                        iters=5),
         _time_ms(lambda: flash_attention_plain(q, k, v, causal=False), flush,
@@ -5715,7 +5755,7 @@ def _whisper_kernels(tag, dev, card):
                 q[:, :, None], k[:, :, :n], v[:, :, :n], scale=math.log(2))
 
         size = k.element_size()
-        out["flash_decode"][name] = entry(
+        out["flash_decode"][name] = _reading(
             err5, _time_ms(lambda: flash_decode(q, k, v, ln), flush),
             _time_ms(lambda: decode_ref(q, k, v, ln), flush),
             2 * B * H * n * D * size + 2 * q.numel() * size + B * 4,
@@ -5955,6 +5995,582 @@ def phase_whisper(dev, card):
     return out
 
 
+PARALLEL_LAYERS = 2      # phase 33: llama3.2-3b's depth cut for the DDP steps
+PARALLEL_SEQ = 1024      # phase 33: tokens a row of the DDP steps' batches
+PARALLEL_ROWS = 2        # phase 33: rows a rank of the DDP steps' batches
+PARALLEL_LR = 1e-5       # phase 33 (b): AdamW's first step moves ~lr an element
+RING_TOL = BF16_ATOL     # phase 33 (a): the ring against chunked, bf16
+MOE_EP_TOL = 1e-2        # phase 33 (a): y of the EP path, relative, bf16
+
+
+def _timed_spy(module, name, seen=None):
+    """Replace ``module.name`` by a wrapper that synchronizes the card
+    around each call and adds its seconds to the returned list's first
+    entry and counts the call in its second; with ``seen`` each call's
+    arguments and a copy of its result (a tuple of tensors) are appended.
+    Returns (the list, a function putting the original back)."""
+    import torch
+    inner = getattr(module, name)
+    spent = [0.0, 0]
+
+    def spy(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = inner(*args, **kw)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        spent[1] += 1
+        if seen is not None:      # copies: the caller may change them
+            seen.append((args, [t.clone() for t in r]))
+        return r
+
+    setattr(module, name, spy)
+    return spent, lambda: setattr(module, name, inner)
+
+
+def _plain_quantization(x):
+    """The int8 codes' mean over one rank and the residual of ``x``, by
+    the reference's arithmetic without a collective."""
+    import torch
+    from repro_torch.parallel.collectives import _INV127
+    xf = x.float()
+    scale = torch.clamp(torch.amax(torch.abs(xf)), min=1e-12) * _INV127
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    resid = (xf.double() - q.double() * scale.double()).float()
+    return (q.to(torch.int32).float() * scale) / 1.0, resid
+
+
+def _parallel_ddp(tag, mesh, dev, card):
+    """(a) one compressed DDP step of llama3.2-3b (depth cut) on the
+    one-rank group: K3/K4 launched and counted, the int8 codes and the
+    residuals equal to the plain quantization, the step's time and the
+    compressed all-reduce's share; then K3/K4 held to their plain versions
+    at the step's attention shape (``_parallel_flash``)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.registry import get_config, model_fns
+    from repro_torch.models.schema import tree_leaves, tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import collectives
+    from repro_torch.train.step import make_ddp_train_step
+    L, S, B = PARALLEL_LAYERS, PARALLEL_SEQ, PARALLEL_ROWS
+    cfg = get_config("llama3.2-3b").replace(n_layers=L,
+                                            attention_impl="flash")
+    tc = TrainConfig(grad_compression=True, total_steps=3, warmup_steps=1,
+                     learning_rate=3e-4)
+    params = _true_fan_in(model_fns(cfg).init(
+        torch.Generator(device=dev).manual_seed(0)))
+    errors = tree_map(torch.zeros_like, params)
+    batch = next(SyntheticLMData(cfg.vocab_size, S, B, seed=0))
+    seen, times = [], []
+    spent, restore = _timed_spy(collectives, "compressed_psum", seen)
+    try:
+        step = make_ddp_train_step(model_fns(cfg).loss, tc, mesh)
+        opt = adamw.init_state(params)
+        for i in range(2):     # the first call carries the set-up
+            if i:
+                seen.clear()
+                spent[:] = [0.0, 0]
+                _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, errors, m = step(params, opt, errors, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    finally:
+        restore()
+    dt = times[1]
+    k34, k34_tc = _flash_counts(), _flash_tc_counts()
+    check(k34 == (2 * L, 2 * L) and k34_tc == k34,
+          f"{tag} (a) DDP step: K3/K4 launches {k34}, on the tensor cores "
+          f"{k34_tc}, expected {2 * L} each")
+    check(np.isfinite(float(m["loss"])) and np.isfinite(
+        float(m["grad_norm"])), f"{tag} (a) DDP step metrics {m}")
+    leaves = tree_leaves(errors)
+    check(len(seen) == len(leaves), f"{tag} (a) {len(seen)} compressed "
+                                    f"all-reduces for {len(leaves)} leaves")
+    n_codes = 0
+    for ((x, *_), (mean, resid)), e in zip(seen, leaves):
+        want_mean, want_resid = _plain_quantization(x)
+        check(torch.equal(mean, want_mean) and torch.equal(resid, want_resid)
+              and torch.equal(e, resid),
+              f"{tag} (a) int8 codes or residuals differ from the plain "
+              f"quantization at a leaf of shape {tuple(x.shape)}")
+        n_codes += x.numel()
+    print(f"{tag} (a) DDP step, llama3.2-3b at full width cut to {L} "
+          f"layers, flash, bf16, B {B} x {S}, grad_compression, one-rank "
+          f"NCCL group: loss {float(m['loss']):.5f}, grad norm "
+          f"{float(m['grad_norm']):.4f} (step 2); K3 {k34[0]}, K4 {k34[1]} "
+          f"(tensor cores) a step; {n_codes} int8 codes and residuals EQUAL "
+          f"to the plain quantization (step 2, its gradients fed with step "
+          f"1's residuals); step 1 {times[0]:.3f} s (set-up inside), step 2 "
+          f"{dt:.3f} s, compressed all-reduce "
+          f"(quantize, MAX and SUM all-reduces, dequantize) {spent[0]:.3f} "
+          f"s = {100 * spent[0] / dt:.1f}% of it (card synchronized around "
+          f"each of its {len(seen)} calls); {card}")
+    del params, opt, errors, seen, leaves
+    _free()
+    return {"launches": k34, "step_s": dt, "allreduce_s": spent[0],
+            "shapes": _parallel_flash(tag, dev, card)}
+
+
+def _parallel_flash(tag, dev, card):
+    """(a) K3 and K4 at the DDP steps' attention shape (llama3.2-3b's
+    24/8 heads, D 128, causal, ``PARALLEL_SEQ`` keys, two rows): in bf16
+    as (a)'s step runs them, on the tensor cores, and in float32 as each
+    rank of (b) runs them, on the CUDA cores; each against its plain
+    version, with its device ms beside the plain version's, the bound and
+    SDPA (autograd's backward for K4). bf16 outputs are held within
+    ``tolerance(bf16)`` of each element's size; float32 outputs within
+    ``tolerance(float32)`` times max(1, the output's largest magnitude):
+    dK and dV sum 1024 rows of 3 query heads, and another order of those
+    f32 sums moves their largest elements by more than 1e-5 absolute.
+    Comparison and timing launches do not count."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_plain)
+    from repro_torch.kernels.parity import parity_error, tolerance
+    saved = _save_counts()
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rng = np.random.default_rng(33)
+    B, Hq, Hkv, S, D = 2, 24, 8, PARALLEL_SEQ, 128
+    pairs = B * Hq * S * (S + 1) // 2
+    out = {"flash_attention": {}, "flash_attention_bwd": {}}
+    helds = {}
+
+    def sdpa(a, b, c):
+        return F.scaled_dot_product_attention(a, b, c, is_causal=True,
+                                              scale=math.log(2),
+                                              enable_gqa=True)
+
+    for name, dt, on_tc in (("ddp_bf16", torch.bfloat16, True),
+                            ("ddp_f32", torch.float32, False)):
+        q = _rand(rng, (B, Hq, S, D), D ** -0.5).to(dev, dt)
+        k = _rand(rng, (B, Hkv, S, D)).to(dev, dt)
+        v = _rand(rng, (B, Hkv, S, D)).to(dev, dt)
+        do = _rand(rng, (B, Hq, S, D)).to(dev, dt)
+        c0, tc0 = _flash_counts(), _flash_tc_counts()
+        o, m, d = flash_attention(q, k, v, return_stats=True)
+        grads = flash_attention_bwd(q, k, v, o, do, m, d)
+        ran = tuple(b - a for a, b in zip(c0, _flash_counts()))
+        ran_tc = tuple(b - a for a, b in zip(tc0, _flash_tc_counts()))
+        check(ran == (1, 2) and ran_tc == ((1, 2) if on_tc else (0, 0)),
+              f"{tag} (a) {name}: K3/K4 launches {ran}, on the tensor "
+              f"cores {ran_tc}; expected (1, 2) on "
+              f"{'the tensor' if on_tc else 'the CUDA'} cores")
+        def held(got, want):
+            err, h = parity_error(got, want)
+            if not on_tc:
+                h = err / max(1.0, float(want.abs().max()))
+            return err, h
+
+        err3, held3 = held(o, flash_attention_plain(q, k, v))
+        err4, held4 = map(max, zip(*(held(g, w) for g, w in zip(
+            grads, flash_attention_bwd_plain(q, k, v, o, do, m, d)))))
+        tol = tolerance(dt)
+        check(held3 <= tol and held4 <= tol,
+              f"{tag} (a) {name}: K3 {err3} (held {held3}), K4 {err4} (held "
+              f"{held4}) > {tol}")
+        helds[name] = (held3, held4)
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        lo = sdpa(ql, kl, vl)
+        el = q.element_size()
+        qb, kvb, stats = q.numel() * el, k.numel() * el, 2 * B * Hq * S * 4
+        peak = "bfloat16" if on_tc else "float32"
+        out["flash_attention"][name] = _reading(
+            err3, _time_ms(lambda: flash_attention(q, k, v,
+                                                   return_stats=True),
+                           flush, iters=10),
+            _time_ms(lambda: flash_attention_plain(q, k, v), flush, iters=3),
+            2 * qb + 2 * kvb + stats, 4 * D * pairs,
+            _time_ms(lambda: sdpa(q, k, v), flush, iters=10), peak=peak)
+        out["flash_attention_bwd"][name] = _reading(
+            err4, _time_ms(lambda: flash_attention_bwd(q, k, v, o, do, m, d),
+                           flush, iters=10),
+            _time_ms(lambda: flash_attention_bwd_plain(q, k, v, o, do, m, d),
+                     flush, iters=3),
+            4 * qb + 4 * kvb + stats, 10 * D * pairs,
+            _time_ms(lambda: torch.autograd.grad(lo, (ql, kl, vl), do,
+                                                 retain_graph=True),
+                     flush, iters=10), peak=peak)
+        del q, k, v, do, o, m, d, grads, ql, kl, vl, lo
+    _restore_counts(saved)
+    for i, (kname, shapes) in enumerate(out.items()):
+        for name, e in shapes.items():
+            if name == "ddp_bf16":
+                route, rule = "tensor cores", "of each element's size"
+                t = tolerance(torch.bfloat16)
+            else:
+                route, rule = "CUDA cores", "x max(1, max |want|)"
+                t = tolerance(torch.float32)
+            print(f"{tag} (a) {kname} at the DDP step's shape ({name}, B "
+                  f"{B}, {Hq}/{Hkv} heads, S {S}, D {D}, causal, {route}): "
+                  f"{e['ms']:.4f} ms (plain {e['plain_ms']:.4f}, bound "
+                  f"{e['bound_ms']:.4f} by {e['bound_by']}, SDPA "
+                  f"{e['library_ms']:.4f}); max |err| vs plain "
+                  f"{e['max_abs_err']:.3g}, held {helds[name][i]:.3g} <= "
+                  f"{t} {rule}; {card}")
+    del flush
+    _free()
+    return out
+
+
+def _parallel_ring(tag, mesh, dev, card):
+    """(a) ring_attention at llama3.2-3b's attention shape on the one-rank
+    group against chunked_attention, forward and gradients."""
+    import torch
+    from repro_torch.models.attention import chunked_attention
+    from repro_torch.parallel.ring_attention import ring_attention
+    B, Hq, Hkv, S, D = 1, 24, 8, 4096, 128
+    g = torch.Generator(device=dev).manual_seed(33)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale) \
+            .bfloat16().requires_grad_()
+
+    q, k, v = rnd(B, Hq, S, D, scale=D ** -0.5), rnd(B, Hkv, S, D), \
+        rnd(B, Hkv, S, D)
+    do = torch.randn(B, Hq, S, D, generator=g, device=dev).bfloat16()
+    grads = {}
+    for name, fn in (("ring", lambda q, k, v: ring_attention(
+            q, k, v, mesh, causal=True)),
+                     ("chunked", lambda q, k, v: chunked_attention(
+            q, k, v, causal=True, intmax=True, chunk=512))):
+        for t in (q, k, v):
+            t.grad = None
+        o = fn(q, k, v)
+        o.backward(do)
+        grads[name] = (o.detach().float(), *(t.grad.float()
+                                             for t in (q, k, v)))
+    errs = [float((a - b).abs().max()) / (1.0 if i == 0 else
+                                          float(b.abs().max()))
+            for i, (a, b) in enumerate(zip(grads["ring"],
+                                           grads["chunked"]))]
+    check(errs[0] <= RING_TOL and max(errs[1:]) <= RING_TOL,
+          f"{tag} (a) ring vs chunked: |o| err {errs[0]:.3g}, dq/dk/dv "
+          f"relative {errs[1:]} (gate {RING_TOL})")
+    with torch.no_grad():
+        ms = {n: _time_ms(f, torch.empty(0, device=dev), iters=5)
+              for n, f in (("ring", lambda: ring_attention(
+                  q, k, v, mesh, causal=True)),
+                           ("chunked", lambda: chunked_attention(
+                  q, k, v, causal=True, intmax=True, chunk=512)))}
+    print(f"{tag} (a) ring_attention, B {B}, {Hq}/{Hkv} heads, D {D}, S {S}, "
+          f"bf16, causal, one-rank NCCL group (one block in its ring) vs "
+          f"chunked_attention (chunk 512): max |o err| {errs[0]:.3g}, "
+          f"dq/dk/dv max err / max |grad| {errs[1]:.3g} / {errs[2]:.3g} / "
+          f"{errs[3]:.3g} (gate {RING_TOL}); forward {ms['ring']:.3f} ms "
+          f"vs chunked {ms['chunked']:.3f} ms; no kernel (the reference "
+          f"computes the ring outside any Pallas kernel); {card}")
+    del q, k, v, do, grads
+    _free()
+
+
+def _parallel_moe(tag, mesh, dev, card):
+    """(a) moe_apply_shard_map at moonshot-v1-16b-a3b's width (phase 30's
+    training cut, 2 MoE layers) on the one-rank group against
+    _moe_apply_global, K6 counted."""
+    import torch
+    from repro_torch.kernels.softermax import softermax_rows
+    from repro_torch.models import moe
+    from repro_torch.models.registry import get_config
+    from repro_torch.models.schema import layer_params, n_stacked
+    cfg = get_config(MOE_ARCH).replace(n_layers=MOE_TRAIN_LAYERS)
+    params = _drawn(tag, f"(a) {MOE_ARCH} cut to {MOE_TRAIN_LAYERS} MoE "
+                    "layers", cfg, dev)
+    B, S, d = 8, 128, cfg.d_model
+    x = torch.randn(B, S, d, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(34)) \
+        .bfloat16()
+    rows, k6 = [], 0
+    for i in range(n_stacked(params["blocks"])):
+        fp = layer_params(params["blocks"], i)["ffn"]
+        with torch.no_grad():
+            y_g, aux_g = moe._moe_apply_global(fp, x, cfg)
+            c0 = softermax_rows.launches
+            y_e, aux_e = moe.moe_apply_shard_map(fp, x, cfg, mesh)
+            k6 += softermax_rows.launches - c0
+            saved = _save_counts()
+            t_g = _time_ms(lambda: moe._moe_apply_global(fp, x, cfg),
+                           torch.empty(0, device=dev), iters=5)
+            t_e = _time_ms(lambda: moe.moe_apply_shard_map(fp, x, cfg, mesh),
+                           torch.empty(0, device=dev), iters=5)
+            _restore_counts(saved)
+        err = float((y_e.float() - y_g.float()).abs().max()) / \
+            float(y_g.float().abs().max())
+        err_aux = abs(float(aux_e) - float(aux_g)) / abs(float(aux_g))
+        check(err <= MOE_EP_TOL and err_aux <= MOE_EP_TOL,
+              f"{tag} (a) layer {i}: EP y err {err:.3g}, aux {err_aux:.3g} "
+              f"(gate {MOE_EP_TOL})")
+        rows.append((err, err_aux, t_e, t_g))
+    n = len(rows)
+    check(k6 == n, f"{tag} (a) K6 launches {k6} for {n} EP calls")
+    for i, (err, err_aux, t_e, t_g) in enumerate(rows):
+        print(f"{tag} (a) moe_apply_shard_map, layer {i}, B {B} x {S} "
+              f"tokens, bf16, one-rank NCCL group vs _moe_apply_global: y "
+              f"max err / max |y| {err:.3g}, aux rel {err_aux:.3g} (gate "
+              f"{MOE_EP_TOL}); {t_e:.3f} ms vs {t_g:.3f} ms; {card}")
+    print(f"{tag} (a) K6 {k6} launches for {n} EP calls (router rows "
+          f"({B * S}, {cfg.moe.n_experts})); {card}")
+    del params, x
+    _free()
+    return k6
+
+
+_DDP_RANK = """
+import sys
+sys.path[:0] = [{root!r}, {src!r}]
+import chip_smoke
+chip_smoke._ddp_rank({rank}, 2, {store!r}, {out!r})
+"""
+
+# (b)'s gloo facts, each exchange in two processes of its own: a CUDA
+# tensor handed to gloo's send aborts the process (it writes the device
+# pointer to its socket), so no rank that matters may try it
+_GLOO_PROBE = """
+import datetime, sys, torch, torch.distributed as dist
+op, rank, store = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank,
+                        world_size=2, timeout=datetime.timedelta(seconds=30))
+t = torch.full((4,), float(rank), device="cuda")
+if op == "send/recv":
+    dist.send(t, 1) if rank == 0 else dist.recv(t, 0)
+else:
+    dist.all_to_all(list(torch.empty(2, device="cuda").chunk(2)),
+                    list(t[:2].chunk(2)))
+print("ok", float(t[0]))
+"""
+
+
+def _ddp_rank(rank, world, store, out_path):
+    """(b) one rank of the two-rank gloo group on the shared card: after
+    an untimed compressed step (set-up), the uncompressed DDP step at full
+    width cut to ``PARALLEL_LAYERS`` layers in float32, ``PARALLEL_ROWS``
+    rows a rank, against the one-rank step on the whole batch (rank 0:
+    loss, grad norm, every parameter and first-moment leaf), the
+    compressed step against the uncompressed one; each from the same
+    fresh weights."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_host_mesh, mesh_shape
+    from repro_torch.models.registry import get_config, model_fns
+    from repro_torch.models.schema import tree_leaves, tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_mod
+    from repro_torch.train.step import make_ddp_train_step, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    build.load_library()
+    dev = torch.device("cuda")
+    mesh = make_host_mesh()
+    res = {"rank": rank, "mesh": mesh_shape(mesh),
+           "backend": dist.get_backend()}
+    L, S, B = PARALLEL_LAYERS, PARALLEL_SEQ, PARALLEL_ROWS * world
+    cfg = get_config("llama3.2-3b").replace(
+        n_layers=L, attention_impl="flash", compute_dtype="float32")
+    batch = next(SyntheticLMData(cfg.vocab_size, S, B, seed=0))
+
+    def init():
+        return _true_fan_in(model_fns(cfg).init(
+            torch.Generator(device=dev).manual_seed(0)))
+
+    def ddp(comp):
+        tc = TrainConfig(grad_compression=comp, total_steps=3,
+                         warmup_steps=1, learning_rate=PARALLEL_LR)
+        params = init()
+        # the names the step looks up at call time (its module's globals)
+        spent, restore = _timed_spy(
+            step_mod, "compressed_psum_tree" if comp else "pmean_tree")
+        try:
+            step = make_ddp_train_step(model_fns(cfg).loss, tc, mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, o, _, m = step(params, adamw.init_state(params),
+                              tree_map(torch.zeros_like, params), batch)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            restore()
+        check(spent[1] > 0, f"rank {rank}: the step made no all-reduce "
+                            "call that the timing saw")
+        return p, o, m, dt, spent[0], tc
+
+    def rel_l2(a, b):
+        return max(float(torch.linalg.vector_norm(x - y) /
+                         torch.linalg.vector_norm(y))
+                   for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    ddp(True)            # set-up (cuBLAS, the kernels' first calls) untimed
+    _free()
+    p_u, o_u, m_u, res["step_s"], res["allreduce_s"], tc = ddp(False)
+    res["loss"], res["grad_norm"] = float(m_u["loss"]), \
+        float(m_u["grad_norm"])
+    if rank == 0:
+        params = init()
+        p1, o1, m1 = make_train_step(model_fns(cfg).loss, tc)(
+            params, adamw.init_state(params), batch)
+        res["one_loss"], res["one_grad_norm"] = float(m1["loss"]), \
+            float(m1["grad_norm"])
+        res["leaf_rel_l2"] = rel_l2(p_u, p1)
+        # the first moment, (1 - b1) x the mean gradient: unlike the first
+        # step's update, it scales with the gradient
+        res["moment_rel_l2"] = rel_l2(o_u.m, o1.m)
+        del params, p1, o1
+        _free()
+    del o_u
+    p_c, _, m_c, res["step_c_s"], res["allreduce_c_s"], _ = ddp(True)
+    res["loss_c"] = float(m_c["loss"])
+    res["max_dp_c"] = max(float((a - b).abs().max())
+                          for a, b in zip(tree_leaves(p_c),
+                                          tree_leaves(p_u)))
+    # every rank holds the same parameters
+    flat = torch.cat([t.reshape(-1)[:4096] for t in tree_leaves(p_u)])
+    other = flat.clone()
+    dist.broadcast(other, 0)
+    res["same_params"] = bool(torch.equal(flat, other))
+    del p_u, p_c
+    _free()
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
+def _parallel_two_ranks(tag, card):
+    """(b) two gloo ranks sharing the card, spawned here."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        probes = {op: [subprocess.Popen(
+            [sys.executable, "-c", _GLOO_PROBE, op, str(r),
+             f"{tmp}/probe{i}"], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+            for i, op in enumerate(("send/recv", "all_to_all"))}
+        procs, outs, logs = [], [], []
+        for r in range(2):
+            outs.append(f"{tmp}/rank{r}.json")
+            logs.append(open(f"{tmp}/rank{r}.log", "w+"))
+            code = _DDP_RANK.format(root=str(ROOT), src=str(ROOT / "src"),
+                                    rank=r, store=f"{tmp}/store",
+                                    out=outs[-1])
+            procs.append(subprocess.Popen([sys.executable, "-c", code],
+                                          stdout=logs[-1],
+                                          stderr=subprocess.STDOUT))
+        try:
+            for p in procs:
+                p.wait(timeout=240)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            log.seek(0)
+            check(p.returncode == 0, f"{tag} (b) rank {r} exited "
+                                     f"{p.returncode}:\n{log.read()[-3000:]}")
+            log.close()
+        res = []
+        for o in outs:
+            with open(o) as f:
+                res.append(json.load(f))
+        facts = {}
+        for op, ps in probes.items():
+            said = []
+            for p in ps:
+                try:
+                    text = p.communicate(timeout=60)[0]
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    text = p.communicate()[0] + "\n(timed out)"
+                last = [l for l in text.splitlines()
+                        if l.strip() and "arn" not in l][-1:] or [""]
+                said.append(f"exit {p.returncode}: {last[0].strip()[:150]}")
+            facts[op] = "; ".join(said)
+    r0, r1 = res
+    check(r0["mesh"] == r1["mesh"] == {"data": 2, "model": 1} and
+          r0["backend"] == "gloo", f"{tag} (b) meshes {r0['mesh']}")
+    rel_loss = abs(r0["loss"] - r0["one_loss"]) / abs(r0["one_loss"])
+    rel_gn = abs(r0["grad_norm"] - r0["one_grad_norm"]) / \
+        abs(r0["one_grad_norm"])
+    bound = 2 * PARALLEL_LR * 1.001
+    check(r0["loss"] == r1["loss"] and rel_loss <= 1e-5 and
+          r0["grad_norm"] == r1["grad_norm"] and rel_gn <= 1e-5 and
+          r0["leaf_rel_l2"] <= 1e-5 and r0["moment_rel_l2"] <= 1e-5 and
+          r1["same_params"],
+          f"{tag} (b) two ranks vs one: loss {r0['loss']} / {r1['loss']} vs "
+          f"{r0['one_loss']} (rel {rel_loss:.3g}), grad norm "
+          f"{r0['grad_norm']} / {r1['grad_norm']} vs {r0['one_grad_norm']} "
+          f"(rel {rel_gn:.3g}), worst leaf rel L2: parameters "
+          f"{r0['leaf_rel_l2']:.3g}, first moment {r0['moment_rel_l2']:.3g} "
+          f"(gates 1e-5), same params {r1['same_params']}")
+    check(max(r0["max_dp_c"], r1["max_dp_c"]) <= bound,
+          f"{tag} (b) compressed vs uncompressed step: max |dp| "
+          f"{r0['max_dp_c']}, {r1['max_dp_c']} > 2 lr = {bound}")
+    print(f"{tag} (b) DDP step on two gloo ranks sharing the card, "
+          f"llama3.2-3b at full width cut to {PARALLEL_LAYERS} layers, "
+          f"float32, flash, B {2 * PARALLEL_ROWS} x {PARALLEL_SEQ} "
+          f"({PARALLEL_ROWS} rows a rank), lr {PARALLEL_LR}: loss "
+          f"{r0['loss']:.6f} vs the one-rank step on the whole batch "
+          f"{r0['one_loss']:.6f} (rel {rel_loss:.3g}, gate 1e-5), grad norm "
+          f"{r0['grad_norm']:.6f} vs {r0['one_grad_norm']:.6f} (rel "
+          f"{rel_gn:.3g}, gate 1e-5), every parameter leaf within "
+          f"{r0['leaf_rel_l2']:.3g} and every first-moment leaf within "
+          f"{r0['moment_rel_l2']:.3g} relative L2 (gates 1e-5); compressed "
+          f"step: every parameter "
+          f"within {max(r0['max_dp_c'], r1['max_dp_c']):.3g} of the "
+          f"uncompressed step's (gate 2 lr = {bound:.3g}); {card}")
+    for r in res:
+        print(f"{tag} (b) rank {r['rank']}: step {r['step_s']:.3f} s, "
+              f"all-reduces of the loss and the gradients (gloo, CUDA "
+              f"tensors) {r['allreduce_s']:.3f} s = "
+              f"{100 * r['allreduce_s'] / r['step_s']:.1f}%; compressed "
+              f"step {r['step_c_s']:.3f} s, its all-reduce "
+              f"{r['allreduce_c_s']:.3f} s = "
+              f"{100 * r['allreduce_c_s'] / r['step_c_s']:.1f}%; {card}")
+    print(f"{tag} (b) gloo with CUDA tensors: all_reduce and broadcast "
+          f"ok (the steps above); send/recv, ranks {facts['send/recv']}; "
+          f"all_to_all, ranks {facts['all_to_all']}; {card}")
+
+
+def phase_parallel(dev, card):
+    """33. (S) parallel/ on the card. Returns this path's readings of K3,
+    K4 and K6 for the ``kernels`` line."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh, mesh_shape
+    tag = "[33]"
+    t_phase = time.perf_counter()
+    mesh = make_host_mesh()
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1 and
+          mesh_shape(mesh) == {"data": 1, "model": 1},
+          f"{tag} host mesh {mesh_shape(mesh)} over {dist.get_backend()}")
+    ddp = _parallel_ddp(tag, mesh, dev, card)
+    _parallel_ring(tag, mesh, dev, card)
+    k6 = _parallel_moe(tag, mesh, dev, card)
+    dist.destroy_process_group()
+    _parallel_two_ranks(tag, card)
+    print(f"{tag} phase time {time.perf_counter() - t_phase:.1f} s; {card}")
+    k3, k4 = ddp["launches"]
+    step = {"ddp_step_s": ddp["step_s"],
+            "compressed_allreduce_s": ddp["allreduce_s"]}
+    return {"flash_attention": {"launches": k3, **step,
+                                **ddp["shapes"]["flash_attention"]},
+            "flash_attention_bwd": {"launches": k4, **step,
+                                    **ddp["shapes"]["flash_attention_bwd"]},
+            "softermax_rows": {"launches": k6}}
+
+
 def _row(name, src, replaces, launches, per_step, err, ms, plain, nbytes,
          flops, library=None, peak="bfloat16"):
     """One kernel's entry of the ``kernels`` line; ``peak`` names the rate
@@ -6049,6 +6665,7 @@ def main() -> int:
     moe_path = phase_moe(dev, card)
     family_path = phase_families(dev, card)
     whisper_path = phase_whisper(dev, card)
+    parallel_path = phase_parallel(dev, card)
     for k in kernels:
         k["card"] = card
         if k["name"] in moe_path:
@@ -6057,6 +6674,8 @@ def main() -> int:
             k["families"] = family_path[k["name"]]
         if k["name"] in whisper_path:
             k["whisper"] = whisper_path[k["name"]]
+        if k["name"] in parallel_path:
+            k["parallel"] = parallel_path[k["name"]]
         lib = "" if k["library_ms"] is None else \
             f", library {k['library_ms']:.4f} ms"
         if "earlier_ms" in k:

@@ -85,10 +85,9 @@ class ModelConfig:
     # flags for tests / interpret-mode kernels
     interpret_kernels: bool = False
     # beyond-paper optimizations of the JAX package, kept so configs agree
-    # field for field; of these the port reads ``opt_int8_kv`` (an int8 KV
-    # pool by default) and ``opt_bf16_params`` (matrix parameters cast to
-    # the compute dtype once per forward); the others shape sharding,
-    # which the port does not have yet
+    # field for field; the port reads every one but ``opt_seq_parallel``
+    # and ``opt_serve_resident``, which select placements (rule tables of
+    # ``parallel/sharding.py``) that the port does not place by yet
     opt_bf16_params: bool = False
     opt_cache_seq_shard: bool = False
     opt_dus_cache: bool = False
@@ -157,7 +156,7 @@ class TrainConfig:
     z_loss: float = 1e-4
     microbatches: int = 1        # gradient accumulation
     grad_compression: bool = False  # int8 error-feedback allreduce (the
-                                    # data-parallel step; not ported yet)
+                                    # data-parallel step)
     checkpoint_every: int = 100
     keep_checkpoints: int = 3
     seed: int = 0

@@ -63,7 +63,10 @@ family's prefill reads audio frames, not prompts
 Runs on the CUDA card by default; ``--device cpu`` runs the plain PyTorch
 versions of the kernels instead (with ``--reduced`` for a CPU-sized model).
 Weights are random, drawn from ``--seed``; prompts too. The paged-engine
-options are ignored by the static engine.
+options are ignored by the static engine. The run is under
+``sharding_context(make_host_mesh(), SERVE_RULES)``, as the reference's;
+``--production-mesh`` raises until ``parallel/``'s implicit placement is
+ported (ROADMAP.md Queue 1 item 6b).
 """
 from __future__ import annotations
 
@@ -73,7 +76,9 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.launch.mesh import make_host_mesh, mesh_shape
 from repro_torch.models.lm import cast_matrix_params
 from repro_torch.models.registry import (GRID_ARCHS, check_decoder_only,
                                          get_config, init_lm_params,
@@ -83,6 +88,7 @@ from repro_torch.serve import (ContinuousEngine, EngineGuard,
                                FleetSupervisor, Journal, Router, ServeEngine,
                                Telemetry, canned_fleet_plan, canned_plan,
                                check_invariants)
+from repro_torch.parallel.sharding import SERVE_RULES, sharding_context
 from repro_torch.serve.paged_step import check_paged_support
 from repro_torch.utils.device import resolve_device
 
@@ -191,7 +197,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "budget; requests that miss it are cancelled "
                          "(reason 'deadline'). 0 = no budget")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="the production mesh (needs parallel/, not ported)")
+                    help="the production mesh (needs ROADMAP.md Queue 1 "
+                         "item 6b, not ported)")
     ap.add_argument("--replicas", type=int, default=1,
                     help="paged engine: serve through a FleetSupervisor "
                          "over this many engine replicas (serve/"
@@ -253,8 +260,21 @@ def main(argv=None) -> None:
     args = parse_args(argv)
     if args.production_mesh:
         raise NotImplementedError(
-            "--production-mesh needs the port of parallel/")
+            "--production-mesh needs parallel/'s implicit placement on "
+            "DTensors (ROADMAP.md Queue 1 item 6b)")
     device = resolve_device(args.device)
+    own_group = not dist.is_initialized()
+    mesh = make_host_mesh(device=device)
+    log.info("mesh: %s", mesh_shape(mesh))
+    try:
+        with sharding_context(mesh, SERVE_RULES):
+            _serve(args, device)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _serve(args, device) -> None:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_config(cfg)

@@ -12,8 +12,10 @@ monitor) on one device.
 Runs on the CUDA card by default; ``--device cpu`` runs the kernels' plain
 versions instead (with ``--reduced`` for a CPU-sized model). Weights are
 random, drawn from ``torch.Generator(device).manual_seed(0)``; batches come
-from the numpy ``SyntheticLMData`` (seed 0). ``--production-mesh`` and
-``--multi-pod`` need the port of ``parallel/`` and raise until then.
+from the numpy ``SyntheticLMData`` (seed 0). The run is under
+``sharding_context(make_host_mesh(), DEFAULT_RULES)``, as the reference's;
+``--production-mesh`` and ``--multi-pod`` raise until ``parallel/``'s
+implicit placement is ported (ROADMAP.md Queue 1 item 6b).
 ``--arch whisper-base`` is refused with a ValueError: its loss reads audio
 frames, which the token data has not (``registry.check_decoder_only``).
 """
@@ -22,12 +24,15 @@ from __future__ import annotations
 import argparse
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.data import SyntheticLMData
+from repro_torch.launch.mesh import make_host_mesh, mesh_shape
 from repro_torch.models.registry import (GRID_ARCHS, check_decoder_only,
                                          get_config, model_fns,
                                          reduce_config)
+from repro_torch.parallel.sharding import DEFAULT_RULES, sharding_context
 from repro_torch.train import make_train_step, train
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.logging import get_logger
@@ -42,7 +47,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="smoke-scale config (CPU dev box)")
     ap.add_argument("--optimized", action="store_true")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="the production mesh (needs parallel/, not ported)")
+                    help="the production mesh (needs ROADMAP.md Queue 1 "
+                         "item 6b, not ported)")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--batch", type=int, default=8)
@@ -60,8 +66,21 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     if args.production_mesh or args.multi_pod:
         raise NotImplementedError(
-            "--production-mesh / --multi-pod need the port of parallel/")
+            "--production-mesh / --multi-pod need parallel/'s implicit "
+            "placement on DTensors (ROADMAP.md Queue 1 item 6b)")
     device = resolve_device(args.device)
+    own_group = not dist.is_initialized()
+    mesh = make_host_mesh(device=device)
+    log.info("mesh: %s", mesh_shape(mesh))
+    try:
+        with sharding_context(mesh, DEFAULT_RULES):
+            return _train(args, device)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _train(args, device) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_config(cfg)

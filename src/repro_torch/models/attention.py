@@ -7,7 +7,10 @@ by ``cfg.attention_impl``:
 
 * ``chunked`` — the online Softermax state (running IntMax, running
   denominator, accumulator) carried over KV chunks in plain torch;
-  differentiable through autograd.
+  differentiable through autograd. Under ``opt_ring_attention`` and
+  sequence-parallel rules over a ``model`` axis of 2 or more ranks
+  (``_ring_applicable``) the same recurrence runs around the ring of
+  ``parallel/ring_attention.py``.
 * ``flash``   — the dense flash-attention kernels (K3 forward, K4 backward)
   through the trainable op ``flash_attention_op``; on CPU tensors their
   plain versions.
@@ -58,6 +61,26 @@ def attention_schema(cfg: ModelConfig):
         s["q_norm"] = {"scale": ParamSpec((dh,), ("head_dim",), init="ones")}
         s["k_norm"] = {"scale": ParamSpec((dh,), ("head_dim",), init="ones")}
     return s
+
+
+def _ring_applicable(cfg: ModelConfig, q, k, window, x_kv) -> bool:
+    """Ring attention engages for sequence-parallel self attention: seq
+    sharded over "model" by the ambient rules, a model axis of 2 or more,
+    equal q/kv lengths divisible by the ring size, no window."""
+    if not cfg.opt_ring_attention or window or x_kv is not None:
+        return False
+    from repro_torch.launch.mesh import mesh_shape
+    from repro_torch.parallel.sharding import current_mesh, current_rules
+    mesh = current_mesh()
+    if mesh is None:
+        return False
+    sizes = mesh_shape(mesh)
+    if sizes.get("model", 1) < 2:
+        return False
+    if "model" not in current_rules().get("seq"):
+        return False
+    n = sizes["model"]
+    return q.shape[2] == k.shape[2] and q.shape[2] % n == 0
 
 
 def _mode(cfg: ModelConfig) -> Tuple[float, bool]:
@@ -220,7 +243,12 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     impl = cfg.attention_impl
     if cfg.softmax_impl == "softermax_fixed":
         impl = "naive"      # QAT mode materializes scores (finetuning only)
-    if impl == "chunked":
+    if impl == "chunked" and _ring_applicable(cfg, q, k, window, x_kv):
+        from repro_torch.parallel.ring_attention import ring_attention
+        from repro_torch.parallel.sharding import current_mesh
+        o = ring_attention(q, k, v, current_mesh(), causal=causal,
+                           intmax=intmax)
+    elif impl == "chunked":
         o = chunked_attention(q, k, v, causal=causal, intmax=intmax,
                               window=window, chunk=cfg.attention_chunk)
     elif impl == "flash":

@@ -306,6 +306,27 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int):
     return out
 
 
+def cache_logical(cfg: ModelConfig):
+    """``{name: logical axes}`` of ``cache_spec``'s entries (the third
+    element of the reference's ``cache_spec`` tuples). Under
+    ``opt_cache_seq_shard`` the cache's sequence dim is ``kv_seq`` (the
+    rules map it to ``model``), otherwise ``seq``."""
+    seq = "kv_seq" if cfg.opt_cache_seq_shard else "seq"
+    kv = ("layers", "batch", "kv_heads", seq, "head_dim")
+    axes = {"k": kv, "v": kv, "k_scale": kv[:4], "v_scale": kv[:4],
+            "ckv": ("layers", "batch", seq, "kv_lora"),
+            "krope": ("layers", "batch", seq, None),
+            "head_ckv": ("layers", "batch", seq, "kv_lora"),
+            "head_krope": ("layers", "batch", seq, None),
+            "shift_t": ("layers", "batch", "act_embed"),
+            "shift_c": ("layers", "batch", "act_embed"),
+            "wkv": ("layers", "batch", "heads", "head_dim", None),
+            "ssm": ("layers", "batch", "act_mlp", "state"),
+            "conv": ("layers", "batch", None, "act_mlp"),
+            "len": ("batch",)}
+    return {name: axes[name] for name in cache_spec(cfg, 1, 1)}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     return {name: torch.zeros(sh, dtype=dt, device=device)
             for name, (sh, dt) in cache_spec(cfg, batch, max_len).items()}

@@ -14,7 +14,7 @@ from repro_torch.configs.base import MLAConfig, ModelConfig, SSMConfig
 from repro_torch.models import lm as lm_mod
 from repro_torch.models import whisper as whisper_mod
 from repro_torch.models.lm import lm_schema
-from repro_torch.models.schema import init_params
+from repro_torch.models.schema import init_params, logical_specs
 
 ARCH_IDS = (
     "moonshot-v1-16b-a3b",
@@ -102,14 +102,15 @@ def check_decoder_only(cfg: ModelConfig, what: str) -> None:
 
 
 def model_fns(cfg: ModelConfig) -> SimpleNamespace:
-    """The uniform interface, as in the JAX registry: ``schema``,
-    ``init(generator)`` (parameters on ``generator.device``),
-    ``forward(params, batch)`` (logits), ``loss(params, batch)`` (cross
+    """The uniform interface, as in the JAX registry: ``schema``, ``specs``
+    (its tree of logical-axis tuples), ``init(generator)`` (parameters on
+    ``generator.device``), ``forward(params, batch)`` (logits), ``loss(params, batch)`` (cross
     entropy with its own z-loss weight, as the reference's registry keeps
     it, plus the MoE layers' aux loss; metrics ``{"ce", "aux"}``), and the
     serving steps ``prefill(params, batch, max_len)``,
-    ``decode_step(params, tokens1, cache)`` and ``cache_spec(batch,
-    max_len)``.
+    ``decode_step(params, tokens1, cache)``, ``cache_spec(batch,
+    max_len)`` and ``cache_logical()`` (the cache entries' logical axes,
+    which the reference's ``cache_spec`` carries as a third element).
 
     The encoder-decoder family (whisper) reads ``batch["frames"]`` (B,
     ``cfg.enc_positions``, d) besides the tokens; its ``prefill`` returns
@@ -121,6 +122,7 @@ def model_fns(cfg: ModelConfig) -> SimpleNamespace:
             cfg, max_dec_positions=MAX_DEC_POSITIONS)
         return SimpleNamespace(
             schema=schema,
+            specs=logical_specs(schema),
             init=lambda generator: init_params(schema, generator,
                                                cfg.param_dtype_),
             forward=lambda p, batch: whisper_mod.whisper_forward(
@@ -134,10 +136,12 @@ def model_fns(cfg: ModelConfig) -> SimpleNamespace:
                 whisper_mod.whisper_decode_step(p, tok1, cache, cfg),
             cache_spec=lambda batch, max_len: whisper_mod.whisper_cache_spec(
                 cfg, batch, max_len, cfg.enc_positions),
+            cache_logical=whisper_mod.whisper_cache_logical,
         )
     schema = lm_schema(cfg)
     return SimpleNamespace(
         schema=schema,
+        specs=logical_specs(schema),
         init=lambda generator: init_params(schema, generator,
                                            cfg.param_dtype_),
         forward=lambda p, batch: lm_mod.lm_forward(p, batch["tokens"],
@@ -149,4 +153,5 @@ def model_fns(cfg: ModelConfig) -> SimpleNamespace:
             p, tok1, cache, cfg),
         cache_spec=lambda batch, max_len: lm_mod.cache_spec(
             cfg, batch, max_len),
+        cache_logical=lambda: lm_mod.cache_logical(cfg),
     )

@@ -1,10 +1,12 @@
 """Schema-driven parameters: one definition → initialized tensors.
 
 Each module defines a nested dict of ``ParamSpec`` (shape, logical axes,
-initializer); ``init_params`` materializes it. Layer stacks keep the JAX
-package's leading ``(n_layers, …)`` axis (``stack_schema``), so a parameter
-tree has the same structure and shapes in both packages; the port's
-eager layer loop indexes that axis (``layer_params``).
+initializer); ``init_params`` materializes it, and ``logical_specs``
+gives the same-structured tree of logical-axis tuples that the sharding
+rules engine (``parallel/sharding.py``) maps to mesh axes. Layer stacks
+keep the JAX package's leading ``(n_layers, …)`` axis (``stack_schema``),
+so a parameter tree has the same structure and shapes in both packages;
+the port's eager layer loop indexes that axis (``layer_params``).
 
 The per-leaf distributions are the JAX package's; the numbers are not —
 they are drawn from an explicit ``torch.Generator``.
@@ -32,11 +34,14 @@ class ParamSpec:
 Schema = Dict[str, Any]  # nested dict with ParamSpec leaves
 
 
-def tree_map(fn, tree):
-    """Apply ``fn`` to every non-dict leaf of a nested dict."""
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` to every non-dict leaf of a nested dict, with the
+    matching leaves of the same-structured trees ``rest`` as further
+    arguments (``jax.tree.map``)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree):
@@ -54,6 +59,12 @@ def stack_schema(schema: Schema, n_layers: int) -> Schema:
     return tree_map(lambda ps: ParamSpec((n_layers,) + ps.shape,
                                          ("layers",) + ps.logical,
                                          ps.init, ps.std), schema)
+
+
+def logical_specs(schema: Schema):
+    """The schema's tree with each ``ParamSpec`` replaced by its logical
+    axes."""
+    return tree_map(lambda ps: ps.logical, schema)
 
 
 # layer stacks: the LM's in forward order, then whisper's encoder and decoder

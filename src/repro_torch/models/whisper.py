@@ -174,6 +174,12 @@ def whisper_cache_spec(cfg: ModelConfig, batch: int, max_len: int,
             "len": ((batch,), torch.int32)}
 
 
+def whisper_cache_logical():
+    """``{name: logical axes}`` of ``whisper_cache_spec``'s entries."""
+    ax = ("layers", "batch", "kv_heads", "seq", "head_dim")
+    return {"k": ax, "v": ax, "xk": ax, "xv": ax, "len": ("batch",)}
+
+
 def whisper_prefill(params, frames: torch.Tensor, cfg: ModelConfig,
                     batch: int, max_len: int):
     """Encode, then each decoder layer's cross K/V (B, Hkv, F, Dh) from the

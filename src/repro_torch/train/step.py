@@ -20,8 +20,10 @@ layer and leaf (28 x 2.8 GB for llama3.2-3b's FFN matrices).
   metrics are the last slice's.
 * the loss comes from the model (``registry.model_fns(cfg).loss``).
 
-``make_ddp_train_step`` (data-parallel with int8 gradient compression)
-waits for the port of ``parallel/``.
+``make_ddp_train_step`` is the data-parallel step over a mesh's data axis:
+replicated parameters, each rank's slice of the batch, gradients
+all-reduced as int8 with error feedback (``tc.grad_compression``,
+``parallel.collectives``) or as their mean.
 """
 from __future__ import annotations
 
@@ -34,12 +36,9 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.models.lm import STACKS
 from repro_torch.models.schema import tree_leaves, tree_map
 from repro_torch.optim import adamw
-
-
-def _map2(fn, a, b):
-    if isinstance(a, dict):
-        return {k: _map2(fn, a[k], b[k]) for k in a}
-    return fn(a, b)
+from repro_torch.parallel.collectives import (axis_group,
+                                              compressed_psum_tree,
+                                              pmean_tree)
 
 
 def _leaf(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -53,14 +52,14 @@ def _grad_leaves(params, grads):
     matching views of ``grads``; each layer stack (``blocks`` and the MoE
     family's ``head_blocks``) becomes a per-layer list (what
     ``models.schema.layer_params`` reads)."""
-    out = {k: _map2(_leaf, params[k], grads[k]) for k in params
+    out = {k: tree_map(_leaf, params[k], grads[k]) for k in params
            if k not in STACKS}
     for name in STACKS:
         if name in params:
             n = tree_leaves(params[name])[0].shape[0]
             out[name] = [
-                _map2(lambda p, g, i=i: _leaf(p[i], g[i]), params[name],
-                      grads[name]) for i in range(n)]
+                tree_map(lambda p, g, i=i: _leaf(p[i], g[i]), params[name],
+                         grads[name]) for i in range(n)]
     return out
 
 
@@ -111,3 +110,39 @@ def make_train_step(loss_fn: Callable, tc: TrainConfig):
         return params, opt_state, {"loss": loss, **metrics, **info}
 
     return train_step
+
+
+def make_ddp_train_step(loss_fn: Callable, tc: TrainConfig, mesh,
+                        data_axis: str = "data"):
+    """The data-parallel step ``(params, opt_state, errors, batch) →
+    (params, opt_state, errors, metrics)`` over ``mesh``'s ``data_axis``.
+
+    Every rank holds the same parameters and optimizer state and the whole
+    batch; it computes gradients on its slice of the batch (rows
+    ``[i·B/n, (i+1)·B/n)`` for its index i on the axis), the loss is their
+    mean over the axis, and the gradients cross the axis as int8 codes with
+    error feedback (``errors``, this rank's residuals, ride in the step's
+    state) under ``tc.grad_compression``, else as their mean. Metrics:
+    ``{"loss", **AdamW info}``, as in the reference."""
+    accumulate = make_loss_and_grad(loss_fn, tc)
+    group, index, n = axis_group(mesh, data_axis)
+
+    def step(params, opt_state, errors, batch):
+        local = {}
+        for k, v in batch.items():
+            B = v.shape[0]
+            if B % n:
+                raise ValueError(f"batch {B} does not split over {n} "
+                                 f"ranks of '{data_axis}'")
+            local[k] = v[index * (B // n):(index + 1) * (B // n)]
+        loss, _, grads = accumulate(params, local)
+        loss = pmean_tree(loss, group)
+        if tc.grad_compression:
+            grads, errors = compressed_psum_tree(grads, group, errors)
+        else:
+            grads = pmean_tree(grads, group)
+        params, opt_state, info = adamw.apply_updates(
+            params, grads, opt_state, tc)
+        return params, opt_state, errors, {"loss": loss, **info}
+
+    return step

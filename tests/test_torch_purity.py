@@ -53,6 +53,34 @@ def test_the_walk_covers_the_family_modules():
             for m in ("mla", "hymba", "rwkv6", "whisper")} <= names
 
 
+def test_the_walk_covers_the_parallel_modules():
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {f"src/repro_torch/parallel/{m}.py" for m in (
+        "sharding", "collectives", "ring_attention", "pipeline")} | {
+        "src/repro_torch/launch/mesh.py",
+        "src/repro_torch/utils/tree.py"} <= names
+
+
+def test_the_parallel_entry_points_take_the_card():
+    """``make_host_mesh`` defaults to the card (and, without one, raises
+    rather than falling back to the CPU); the ring runs where its mesh is
+    and refuses tensors on another device type."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.ring_attention import ring_attention
+    assert inspect.signature(make_host_mesh).parameters["device"] \
+        .default is None
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_host_mesh()
+    mesh = make_host_mesh(device="cpu")
+    assert mesh.device_type == "cpu"
+    q = torch.zeros(1, 2, 8, 4, device="meta")
+    with pytest.raises(ValueError, match="mesh over cpu"):
+        ring_attention(q, q, q, mesh)
+    x = torch.randn(1, 2, 8, 4)
+    assert ring_attention(x, x, x, mesh).device.type == "cpu"
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
