@@ -345,6 +345,36 @@ Phases, in order; any failure raises and exits non-zero:
    takes CUDA tensors for send/recv and all_to_all (NCCL refuses two ranks
    on one device; gloo's CUDA all_reduce is what the DDP step needs).
 
+34. (T) Training of the MLA, hybrid and RWKV-6 families on the card
+   (``phase_family_train``): (a) three AdamW steps of reduced deepseek
+   (expanded and absorbed MLA), hymba (chunked and flash) and rwkv6 in
+   float32 on the card against the CPU from the same weights and batches
+   (``tests/test_torch_moe.py``'s tolerances, the first grad norm within
+   ``FT_GN0_TOL``), launches a step against the layer counts; (b)
+   deepseek-v2-236b at full width cut to its dense head block + 2 MoE
+   layers of 32 routed experts (``DEEPSEEK_TRAIN_*``), S 4096, B 1, bf16,
+   fp32 master weights and AdamW, remat "full": two steps in each MLA form
+   from the same weights, finite, aux > 0, K6 4 a step (forward + remat
+   recompute) and no other kernel, the forms' first losses within
+   ``DEEPSEEK_FORMS_TOL``, step time, tokens/s, parameters, peak memory;
+   (c) hymba-1.5b whole, flash, B 8 x 1024 (its window): a chunked
+   gradient pass and two flash steps from the same weights, the first
+   step's loss, grad norm and every layer's attention-weight gradients
+   against the chunked pass (``WHISPER_TRAIN_TOL``,
+   ``WHISPER_GRAD_TOL``), K3 and K4 64 a step on the tensor cores, the
+   second step profiled (busy share), the scan loop's share of a step
+   (``_scan_share``); (d) rwkv6-7b cut to 8 of 32 layers, B 4 x 1024, two
+   steps, no kernel, the same readings; (e) K3/K4 at hymba's training
+   shape (bf16, G 5, D 64) within ``tolerance(bf16)`` and K6 forward and
+   backward at deepseek's router rows (4096, 32) within 1e-5 of their
+   plain versions, timed beside the bound, the plain version and SDPA /
+   ``torch.softmax``; (f) ``launch.train`` at hymba-1.5b's full width (B
+   1 x 1024, 2 steps) and on the reduced deepseek and rwkv6, the port's
+   ``examples/train_lm.py`` (tiny, 5 steps) and ``examples/serve_lm.py``
+   (reduced; its streams those of a CPU engine on the same weights).
+   ``family_train_reading`` runs (c)/(d)'s readings alone at any S (the
+   S 4096 readings of ``PERF.md``).
+
 Phase 4 also runs one engine with ``attention_impl="flash"``, whose one-shot
 prefill goes through K3.
 
@@ -825,11 +855,14 @@ def _kernel_us(step, n_steps: int):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kern = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = e.name.replace("void ", "").replace(
+    # the raw activity records: ``prof.events()`` first builds a Python
+    # event for every record, which takes longer than the step it traced
+    # when an eager scan launches a kernel per op per time step
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            name = e.name().replace("void ", "").replace(
                 "(anonymous namespace)::", "").split("<")[0].split("(")[0]
-            kern[name] = kern.get(name, 0.0) + e.time_range.elapsed_us()
+            kern[name] = kern.get(name, 0.0) + e.duration_ns() / 1e3
     return wall, kern
 
 
@@ -840,7 +873,11 @@ def step_profile(step, n_steps: int, label: str, watch=()) -> str:
     time. Only the card's activity is traced: the host's op records would
     cost the eager loop's ~1,500 ops a step their overhead and their
     processing, and nothing here reads them."""
-    wall, kern = _kernel_us(step, n_steps)
+    return _profile_line(*_kernel_us(step, n_steps), n_steps, label, watch)
+
+
+def _profile_line(wall, kern, n_steps, label, watch=()) -> str:
+    """``step_profile``'s line from ``_kernel_us``' readings."""
     if not kern:
         return f"{label} profile: device time not measured (no CUDA events)"
     busy = sum(kern.values()) / 1e3 / n_steps
@@ -6571,6 +6608,631 @@ def phase_parallel(dev, card):
             "softermax_rows": {"launches": k6}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 34: training of the MLA, hybrid and RWKV-6 families on the card
+# ---------------------------------------------------------------------------
+
+# (a): each case's reduced config, with its config overrides
+FAMILY_TRAIN_CASES = {
+    "deepseek-expanded": ("deepseek-v2-236b", {}),
+    "deepseek-absorbed": ("deepseek-v2-236b", {"opt_mla_absorbed": True}),
+    "hymba-chunked": ("hymba-1.5b", {"attention_impl": "chunked"}),
+    "hymba-flash": ("hymba-1.5b", {"attention_impl": "flash"}),
+    "rwkv6": ("rwkv6-7b", {}),
+}
+FT_GN0_TOL = 1e-4             # (a): first step's grad norm, card vs CPU
+DEEPSEEK_TRAIN_MOE_LAYERS = 2  # (b): the dense head block + 2 MoE layers
+DEEPSEEK_TRAIN_EXPERTS = 32    # (b): routed experts kept of 160
+DEEPSEEK_FORMS_TOL = 1e-2      # (b): absorbed vs expanded step-0 loss, bf16
+HYMBA_TRAIN_SEQ = 1024         # (c): hymba's window, so flash == chunked
+HYMBA_TRAIN_ROWS = 8           # (c): rows a batch
+RWKV_TRAIN_LAYERS = 8          # (d): rwkv6-7b's first 8 of 32 layers
+RWKV_TRAIN_SEQ = 1024          # (d)
+RWKV_TRAIN_ROWS = 4            # (d)
+
+
+def _ft_steps(cfg, params, tc, data, n, dev, opt=None, profile=None):
+    """``n`` AdamW steps through ``make_train_step``, each synced: (the
+    parameters and AdamW state after, per step (metrics as floats,
+    seconds, launches of K1..K7, (K3, K4) on the tensor cores)). With
+    ``profile`` (label, watch) the last step runs under the profiler
+    (``_kernel_us``: its seconds are the profiled wall) and its
+    ``step_profile`` line is the row's fifth entry."""
+    from repro_torch.models.registry import model_fns
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+    from repro_torch.utils.device import synchronize
+    step = make_train_step(model_fns(cfg).loss, tc)
+    opt = adamw.init_state(params) if opt is None else opt
+    rows = []
+    for i in range(n):
+        batch = next(data)
+        c0, t0c = _all_counts(), _flash_tc_counts()
+        line = None
+        synchronize(dev)
+        t0 = time.perf_counter()
+        if profile is not None and i == n - 1:
+            out = []
+            wall, kern = _kernel_us(
+                lambda: out.append(step(params, opt, batch)), 1)
+            (params, opt, m), = out
+            line = _profile_line(wall, kern, 1, *profile)
+        else:
+            params, opt, m = step(params, opt, batch)
+            synchronize(dev)
+            wall = time.perf_counter() - t0
+        rows.append(({k: float(v) for k, v in m.items()}, wall,
+                     tuple(b - a for a, b in zip(c0, _all_counts())),
+                     tuple(b - a for a, b in zip(t0c, _flash_tc_counts())),
+                     line))
+    return params, opt, rows
+
+
+def _ft_master(cfg, dev):
+    """fp32 master weights of ``cfg`` on the card: the model's own init
+    from ``torch.Generator(dev)`` seeded 0, the mixers' projections at
+    their true fan-in (``_true_fan_in``); (params, seconds)."""
+    import torch
+    from repro_torch.models.registry import model_fns
+    t0 = time.perf_counter()
+    p = _true_fan_in(model_fns(cfg).init(
+        torch.Generator(device=dev).manual_seed(0)))
+    torch.cuda.synchronize()
+    return p, time.perf_counter() - t0
+
+
+def _ft_want(cfg, passes):
+    """Launches of (K1..K7) one training step should make: K3 once a
+    flash attention layer and forward pass, K4 twice a flash attention
+    layer (dK/dV, dQ), K6 once a MoE layer and forward pass."""
+    attn = cfg.n_layers if (cfg.attention_impl == "flash" and
+                            cfg.family == "hybrid") else 0
+    moe = cfg.n_layers - cfg.moe.first_dense if cfg.family == "moe" else 0
+    return (0, 0, passes * attn, 2 * attn, 0, passes * moe, 0)
+
+
+def _ft_card_vs_cpu(tag, dev):
+    """(a) Three AdamW steps of each reduced case on the CPU (plain
+    versions) and on the card (kernels) from the same weights and batches,
+    float32: loss, ce, aux and lr within 1e-5 relative at every step,
+    every final leaf within 2e-4 relative L2 (``tests/test_torch_moe.py``'s),
+    grad_norm within 1e-3 after the first step (the same) and within
+    ``FT_GN0_TOL`` at the first: reduced rwkv6's first grad norm, 2,120,
+    read 1.46e-5 apart on the card and the CPU (cuBLAS and the CPU's BLAS
+    sum its f32 gradients in other orders), past the test's 1e-5."""
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.registry import (get_config, init_lm_params,
+                                             reduce_config)
+    from repro_torch.models.schema import tree_leaves, tree_map
+    tc = TrainConfig(total_steps=3, warmup_steps=1, learning_rate=1e-3)
+    for case, (arch, kw) in FAMILY_TRAIN_CASES.items():
+        cfg = reduce_config(get_config(arch)).replace(**kw)
+        init = init_lm_params(cfg, torch.Generator().manual_seed(0))
+        out = {}
+        for d in ("cpu", dev):
+            params = tree_map(lambda a: a.to(d, copy=True), init)
+            out[str(d)] = _ft_steps(cfg, params, tc, SyntheticLMData(
+                cfg.vocab_size, 32, 4, seed=0), 3, d)
+        (cp, _, crows), (gp, _, grows) = out["cpu"], out[str(dev)]
+        want = _ft_want(cfg, 2 if cfg.remat == "full" else 1)
+        worst = {}
+        for s, (c, g) in enumerate(zip(crows, grows)):
+            check(c[2] == (0,) * 7, f"{tag} (a) {case}: the CPU launched")
+            check(g[2] == want and g[3] == (0, 0),
+                  f"{tag} (a) {case} step {s}: launches (K1..K7) {g[2]}, "
+                  f"want {want}; on the tensor cores {g[3]} (float32 takes "
+                  f"the CUDA cores)")
+            for key in ("loss", "ce", "aux", "grad_norm", "lr"):
+                tol = 1e-5 if key != "grad_norm" else (
+                    1e-3 if s else FT_GN0_TOL)
+                err = abs(g[0][key] - c[0][key])
+                check(math.isfinite(g[0][key]) and
+                      err <= tol * abs(c[0][key]),
+                      f"{tag} (a) {case} step {s} {key}: card "
+                      f"{g[0][key]} cpu {c[0][key]} (tol {tol})")
+                worst[key] = max(worst.get(key, 0.0),
+                                 err / max(abs(c[0][key]), 1e-30))
+        leaf = max((torch.linalg.vector_norm(g.cpu() - c) /
+                    torch.linalg.vector_norm(c)).item()
+                   for c, g in zip(tree_leaves(cp), tree_leaves(gp)))
+        check(leaf <= 2e-4, f"{tag} (a) {case}: final leaves differ by "
+                            f"{leaf} relative L2 > 2e-4")
+        print(f"{tag} (a) reduced {case}, float32, 3 AdamW steps: card == "
+              f"cpu (largest relative diff " + ", ".join(
+                  f"{k} {v:.3g}" for k, v in worst.items()) +
+              f"; worst final leaf {leaf:.3g} rel L2), launches (K1..K7) "
+              f"per step {grows[0][2]}, losses "
+              f"{[round(r[0]['loss'], 5) for r in grows]}")
+
+
+def _ft_deepseek(tag, dev, card):
+    """(b) deepseek-v2-236b cut to its dense head block + 2 MoE layers of
+    32 routed experts, every width as published, S 4096, B 1, bf16
+    compute, fp32 master weights and AdamW, remat full: two steps in each
+    MLA form from the same weights. Returns the K6 launches."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import TRAIN_4K, TrainConfig
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import moe
+    from repro_torch.models.registry import get_config, model_fns
+    from repro_torch.models.schema import num_params
+    base = get_config("deepseek-v2-236b")
+    n_moe = DEEPSEEK_TRAIN_MOE_LAYERS
+    cfg = base.replace(n_layers=base.moe.first_dense + n_moe,
+                       moe=dataclasses.replace(
+                           base.moe, n_experts=DEEPSEEK_TRAIN_EXPERTS))
+    S, V = TRAIN_4K.seq_len, cfg.vocab_size
+    n = num_params(model_fns(cfg).schema)
+    tc = TrainConfig(total_steps=2, warmup_steps=1, learning_rate=3e-4)
+    want = _ft_want(cfg, 2)
+    first, k6 = {}, 0
+    for form in ("expanded", "absorbed"):
+        c = cfg.replace(opt_mla_absorbed=form == "absorbed")
+        params, t_init = _ft_master(c, dev)
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        params, opt, rows = _ft_steps(c, params, tc,
+                                      SyntheticLMData(V, S, 1, seed=0), 2, dev)
+        peak = torch.cuda.max_memory_allocated()
+        for s, (m, dt, launched, _, _) in enumerate(rows):
+            check(all(math.isfinite(m[k]) for k in ("loss", "ce", "aux",
+                                                    "grad_norm"))
+                  and m["aux"] > 0, f"{tag} (b) {form} step {s}: {m}")
+            check(launched == want,
+                  f"{tag} (b) {form} step {s}: launches (K1..K7) "
+                  f"{launched}, want {want} (K6 once a MoE layer in the "
+                  f"forward and in its recompute; MLA runs no kernel)")
+            k6 += launched[5]
+            print(f"{tag} (b) {form} MLA step {s}: loss {m['loss']:.5f} ce "
+                  f"{m['ce']:.5f} aux {m['aux']:.6f} grad norm "
+                  f"{m['grad_norm']:.4f}, {dt:.3f} s ({S / dt:.0f} "
+                  f"tokens/s), K6 {launched[5]}")
+        first[form] = rows[0][0]["loss"]
+        print(f"{tag} (b) deepseek-v2-236b, {form} MLA, cut to "
+              f"{cfg.n_layers} of 60 layers (the dense head block + {n_moe}"
+              f" MoE layers) and {DEEPSEEK_TRAIN_EXPERTS} of 160 routed "
+              f"experts, seq {S}, batch 1 (C = {moe.capacity(S, c)}): "
+              f"{n / 1e9:.3f} B fp32 master parameters ({16 * n / 1e9:.1f} "
+              f"GB with gradients and both AdamW moments) drawn in "
+              f"{t_init:.2f} s, peak memory {peak / 2 ** 30:.2f} GiB "
+              f"({peak / 1e9:.1f} GB); {card}")
+        del params, opt
+        _free()
+    rel = abs(first["absorbed"] - first["expanded"]) / first["expanded"]
+    check(rel <= DEEPSEEK_FORMS_TOL,
+          f"{tag} (b) step-0 loss absorbed {first['absorbed']} vs expanded "
+          f"{first['expanded']}: {rel} > {DEEPSEEK_FORMS_TOL}")
+    print(f"{tag} (b) absorbed vs expanded step-0 loss: relative diff "
+          f"{rel:.3g} (gate {DEEPSEEK_FORMS_TOL}, bf16)")
+    return k6
+
+
+def _scan_share(tag, label, kind, cfg, B, S, layers, step_s):
+    """The scan loop alone at a training step's per-layer shape, as the
+    remat step runs it: a no-grad forward, then a forward and its backward
+    (the recompute), each synced, after one warm call of each; times the
+    layer count against the step's seconds. Returns the line it prints."""
+    import torch
+    from repro_torch.models import hymba, rwkv6
+    g = torch.Generator(device="cuda").manual_seed(7)
+
+    def t(shape, lo=0.0, hi=1.0):
+        return (torch.rand(shape, generator=g, device="cuda") * (hi - lo)
+                + lo).requires_grad_()
+
+    if kind == "hymba":
+        di, st = cfg.ssm.d_inner, cfg.ssm.state
+        ins = (t((B, S, di, st), 0.5, 1.0), t((B, S, di, st), -0.1, 0.1))
+        h0 = torch.zeros((B, di, st), device="cuda")
+
+        def run():
+            return hymba.selective_scan(*ins, h0)[0]
+    else:
+        n = cfg.ssm.head_size
+        H = cfg.d_model // n
+        ins = tuple(t((B, S, H, n), -1.0, 1.0) for _ in range(3)) + (
+            t((B, S, H, n), 0.5, 1.0), t((H, n), -0.1, 0.1))
+        s0 = torch.zeros((B, H, n, n), device="cuda")
+
+        def run():
+            return rwkv6._wkv_scan(*ins, s0)[0]
+
+    def fwd():
+        with torch.no_grad():
+            run()
+
+    def fwd_bwd():
+        y = run()
+        torch.autograd.grad(y, ins, torch.ones_like(y))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    timed(fwd), timed(fwd_bwd)                       # warm
+    t_fwd, t_bwd = timed(fwd), timed(fwd_bwd)
+    total = layers * (t_fwd + t_bwd)
+    line = (f"{tag} {label}: the scan loop alone at the step's per-layer "
+            f"shape (B {B}, S {S}): no-grad forward {t_fwd * 1e3:.1f} ms, "
+            f"forward + backward {t_bwd * 1e3:.1f} ms a layer; x {layers} "
+            f"layers {total:.2f} s against the {step_s:.2f} s step "
+            f"({100 * total / step_s:.0f}%)")
+    print(line)
+    return line
+
+
+def _ft_report(tag, label, cfg, B, S, rows, want, n, t_init, peak, card):
+    """Checks and prints ``_ft_steps``' rows of a full-width run: finite
+    metrics, launches (K1..K7) ``want`` a step, K3/K4 on the tensor
+    cores; the profiled last step's line."""
+    for s, (m, dt, launched, on_tc, line) in enumerate(rows):
+        check(all(math.isfinite(m[k]) for k in ("loss", "ce", "grad_norm")),
+              f"{tag} {label} step {s}: {m}")
+        check(launched == want and on_tc == launched[2:4],
+              f"{tag} {label} step {s}: launches (K1..K7) {launched}, want "
+              f"{want}; K3/K4 on the tensor cores {on_tc}")
+        print(f"{tag} {label} step {s}: loss {m['loss']:.5f} grad norm "
+              f"{m['grad_norm']:.4f}, {dt:.3f} s ({B * S / dt:.0f} "
+              f"tokens/s{', profiled' if line else ''}), launches K3 "
+              f"{launched[2]} K4 {launched[3]} (tensor cores "
+              f"{on_tc[0]}/{on_tc[1]})")
+        if line:
+            print(f"{tag} {line}")
+    print(f"{tag} {label}: {n / 1e9:.3f} B fp32 master parameters "
+          f"({16 * n / 1e9:.1f} GB with gradients and both AdamW moments) "
+          f"drawn in {t_init:.2f} s, peak memory {peak / 2 ** 30:.2f} GiB "
+          f"({peak / 1e9:.1f} GB), batch {B} x {S}; {card}")
+
+
+def _ft_long(tag, label, cfg, B, S, dev, card, steps=2, kind=None,
+             watch=()):
+    """``steps`` AdamW steps of ``cfg`` at full width (fp32 master weights
+    at true fan-in, bf16 compute, remat full) on B x S tokens, each synced
+    and its launches checked against ``_ft_want``, the last one under the
+    profiler (the card's busy share); then the scan loop's share
+    (``_scan_share``). Returns the step rows."""
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.registry import model_fns
+    from repro_torch.models.schema import num_params
+    tc = TrainConfig(total_steps=steps, warmup_steps=1, learning_rate=3e-4)
+    params, t_init = _ft_master(cfg, dev)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    params, opt, rows = _ft_steps(
+        cfg, params, tc, SyntheticLMData(cfg.vocab_size, S, B, seed=0),
+        steps, dev, profile=(f"{label}, one step", watch))
+    peak = torch.cuda.max_memory_allocated()
+    _ft_report(tag, label, cfg, B, S, rows,
+               _ft_want(cfg, 2 if cfg.remat == "full" else 1),
+               num_params(model_fns(cfg).schema), t_init, peak, card)
+    del params, opt
+    _free()
+    if kind is not None:
+        _scan_share(tag, label, kind, cfg, B, S, cfg.n_layers,
+                    rows[0][1] if len(rows) == 1 else min(
+                        r[1] for r in rows[:-1]))
+        _free()
+    return rows
+
+
+def _ft_hymba(tag, dev, card):
+    """(c) hymba-1.5b whole, bf16, S 1024 (its window: flash and chunked
+    compute the same function), B 8: a chunked gradient pass, then two
+    flash AdamW steps from the same master weights, the first one's loss,
+    grad norm and every layer's attention-weight gradients held against
+    the chunked pass (``WHISPER_TRAIN_TOL``, ``WHISPER_GRAD_TOL``), the
+    second profiled; the scan loop's share. Returns (K3, K4) launches of
+    the two flash steps."""
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.registry import get_config, model_fns
+    from repro_torch.models.schema import num_params, tree_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_loss_and_grad
+    cfg = get_config("hymba-1.5b")
+    L, S, B = cfg.n_layers, HYMBA_TRAIN_SEQ, HYMBA_TRAIN_ROWS
+    check(S <= cfg.window, "(c) flash ignores the window: S must not pass it")
+    label = "(c) hymba-1.5b flash"
+    params, t_init = _ft_master(cfg, dev)
+    data = SyntheticLMData(cfg.vocab_size, S, B, seed=0)
+    batch = next(data)
+    tc = TrainConfig(total_steps=2, warmup_steps=1, learning_rate=3e-4)
+    flash = cfg.replace(attention_impl="flash")
+    torch.cuda.reset_peak_memory_stats()
+    res, attn, rows = {}, {}, []
+    for impl in ("chunked", "flash"):
+        c = cfg.replace(attention_impl=impl)
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, met, grads = make_loss_and_grad(model_fns(c).loss, tc)(
+            params, batch)
+        res[impl] = (float(loss), float(torch.sqrt(sum(
+            torch.sum(torch.square(x)) for x in
+            torch._foreach_norm(tree_leaves(grads))))))
+        attn[impl] = {w: grads["blocks"]["mixer"]["attn"][w].clone()
+                      for w in ("wq", "wk", "wv", "wo")}
+        if impl == "chunked":
+            check(_all_counts() == (0,) * 7,
+                  f"{tag} (c) chunked pass: launches {_all_counts()}")
+            del grads
+            _free()
+            continue
+        # flash: this pass is step 0, as make_train_step takes it
+        opt = adamw.init_state(params)
+        params, opt, info = adamw.apply_updates(params, grads, opt, tc)
+        torch.cuda.synchronize()
+        rows.append(({"loss": float(loss), "ce": float(met["ce"]),
+                      **{k: float(v) for k, v in info.items()}},
+                     time.perf_counter() - t0, _all_counts(),
+                     _flash_tc_counts(), None))
+        del grads
+    _reset_counts()
+    params, opt, more = _ft_steps(
+        flash, params, tc, data, 1, dev, opt=opt,
+        profile=(f"{label}, one step", ("flash_fwd_tc_kernel",
+                                        "flash_bwd_dkv_tc_kernel",
+                                        "flash_bwd_dq_tc_kernel")))
+    rows += more
+    peak = torch.cuda.max_memory_allocated()
+    _ft_report(tag, label, flash, B, S, rows, _ft_want(flash, 2),
+               num_params(model_fns(cfg).schema), t_init, peak, card)
+    (lc, gc_), (lf, gf) = res["chunked"], res["flash"]
+    rel_l, rel_g = abs(lf - lc) / abs(lc), abs(gf - gc_) / gc_
+    check(abs(rows[0][0]["grad_norm"] - gf) <= 1e-6 * gf,
+          f"{tag} (c) step 0's grad norm {rows[0][0]['grad_norm']} is not "
+          f"its gradients' {gf}")
+    check(rel_l <= WHISPER_TRAIN_TOL and rel_g <= WHISPER_TRAIN_TOL,
+          f"{tag} (c) flash loss {lf} / grad norm {gf} vs chunked {lc} / "
+          f"{gc_} > {WHISPER_TRAIN_TOL}")
+    errs = {(w, i): ((attn["flash"][w][i] - attn["chunked"][w][i]).norm() /
+                     attn["chunked"][w][i].norm()).item()
+            for w in attn["chunked"] for i in range(L)}
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= WHISPER_GRAD_TOL,
+          f"{tag} (c) flash vs chunked gradient of attn.{worst[0]} layer "
+          f"{worst[1]}: relative L2 {errs[worst]} > {WHISPER_GRAD_TOL}")
+    print(f"{tag} (c) hymba-1.5b, {L} layers, B {B} x S {S}, flash step 0 "
+          f"against a chunked gradient pass from the same weights: loss rel "
+          f"diff {rel_l:.3g}, grad norm rel diff {rel_g:.3g} (gate "
+          f"{WHISPER_TRAIN_TOL} each); attention weights' gradients, "
+          f"largest relative L2 of a layer's leaf: " + ", ".join(
+              f"{w} {max(e for k, e in errs.items() if k[0] == w):.3g}"
+              for w in attn["chunked"]) + f" (gate {WHISPER_GRAD_TOL})")
+    del params, opt, attn
+    _free()
+    _scan_share(tag, label, "hymba", cfg, B, S, L, rows[0][1])
+    _free()
+    return tuple(sum(r[2][i] for r in rows) for i in (2, 3))
+
+
+def _ft_rwkv(tag, dev, card):
+    """(d) rwkv6-7b cut to its first 8 of 32 layers, every width as
+    published, bf16, S 1024, two steps (the second profiled): finite
+    metrics, no kernel."""
+    from repro_torch.models.registry import get_config
+    cfg = get_config("rwkv6-7b").replace(n_layers=RWKV_TRAIN_LAYERS)
+    _ft_long(tag, f"(d) rwkv6-7b cut to {RWKV_TRAIN_LAYERS} of 32 layers",
+             cfg, RWKV_TRAIN_ROWS, RWKV_TRAIN_SEQ, dev, card, kind="rwkv")
+
+
+def family_train_reading(arch, seq, rows, layers=None):
+    """One-off reading outside the smoke: ``_ft_long`` for ``arch`` (cut to
+    ``layers``) at ``rows`` x ``seq``. Run alone with
+
+        PYTHONPATH=src python -c 'import sys; sys.path.insert(0, "."); \\
+            import chip_smoke as cs; \\
+            cs.family_train_reading("hymba-1.5b", 4096, 1)'
+    """
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.models.registry import get_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.load_library()
+    card = card_line()
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
+    if cfg.family == "hybrid":
+        cfg = cfg.replace(attention_impl="flash")
+    kind = {"hybrid": "hymba", "rwkv": "rwkv"}.get(cfg.family)
+    _ft_long("[34*]", f"{arch} ({cfg.n_layers} layers, "
+             f"{cfg.attention_impl})", cfg, rows, seq, torch.device("cuda"),
+             card, kind=kind)
+
+
+def _ft_kernels(tag, dev, card):
+    """(e) K3/K4 at hymba's training shape (B 8, 25/5 heads, S 1024, D 64,
+    causal, bf16: the tensor cores) against their plain versions within
+    ``tolerance(bf16)`` of each element's size, SDPA forward and autograd
+    backward as the library calls; K6 at deepseek's training router rows
+    (4096, 32) in float32, forward and autograd backward against
+    ``softermax_rows_ref`` and its autograd within 1e-5, ``torch.softmax``
+    as the library call. Comparison and timing launches do not count."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_plain)
+    from repro_torch.kernels.parity import parity_error, tolerance
+    from repro_torch.kernels.softermax import (softermax_op, softermax_rows,
+                                               softermax_rows_ref)
+    saved = _save_counts()
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rng = np.random.default_rng(34)
+    B, Hq, Hkv, S, D = HYMBA_TRAIN_ROWS, 25, 5, HYMBA_TRAIN_SEQ, 64
+    pairs = B * Hq * S * (S + 1) // 2
+    q = _rand(rng, (B, Hq, S, D), D ** -0.5).to(dev, torch.bfloat16)
+    k = _rand(rng, (B, Hkv, S, D)).to(dev, torch.bfloat16)
+    v = _rand(rng, (B, Hkv, S, D)).to(dev, torch.bfloat16)
+    do = _rand(rng, (B, Hq, S, D)).to(dev, torch.bfloat16)
+    tc0 = _flash_tc_counts()
+    o, m, d = flash_attention(q, k, v, return_stats=True)
+    grads = flash_attention_bwd(q, k, v, o, do, m, d)
+    ran_tc = tuple(b - a for a, b in zip(tc0, _flash_tc_counts()))
+    check(ran_tc == (1, 2), f"{tag} (e) K3/K4 at hymba's training shape: "
+                            f"tensor-core launches {ran_tc}, want (1, 2)")
+    err3, held3 = parity_error(o, flash_attention_plain(q, k, v))
+    err4, held4 = map(max, zip(*(parity_error(g, w) for g, w in zip(
+        grads, flash_attention_bwd_plain(q, k, v, o, do, m, d)))))
+    tol = tolerance(torch.bfloat16)
+    check(held3 <= tol and held4 <= tol,
+          f"{tag} (e) K3 {err3} (held {held3}), K4 {err4} (held {held4}) "
+          f"> {tol}")
+
+    def sdpa(a, b, c):
+        return F.scaled_dot_product_attention(a, b, c, is_causal=True,
+                                              scale=math.log(2),
+                                              enable_gqa=True)
+
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    lo = sdpa(ql, kl, vl)
+    qb, kvb, stats = q.numel() * 2, k.numel() * 2, 2 * B * Hq * S * 4
+    k3 = _reading(err3, _time_ms(lambda: flash_attention(
+        q, k, v, return_stats=True), flush, iters=10),
+        _time_ms(lambda: flash_attention_plain(q, k, v), flush, iters=3),
+        2 * qb + 2 * kvb + stats, 4 * D * pairs,
+        _time_ms(lambda: sdpa(q, k, v), flush, iters=10))
+    k4 = _reading(err4, _time_ms(lambda: flash_attention_bwd(
+        q, k, v, o, do, m, d), flush, iters=10),
+        _time_ms(lambda: flash_attention_bwd_plain(q, k, v, o, do, m, d),
+                 flush, iters=3),
+        4 * qb + 4 * kvb + stats, 10 * D * pairs,
+        _time_ms(lambda: torch.autograd.grad(lo, (ql, kl, vl), do,
+                                             retain_graph=True),
+                 flush, iters=10))
+    del q, k, v, do, o, m, d, grads, ql, kl, vl, lo
+    # K6 at the router's rows of one MoE layer of (b): B·S x E
+    rows, E = 4096, DEEPSEEK_TRAIN_EXPERTS
+    x = _rand(rng, (rows, E), 3.0).to(dev).requires_grad_()
+    xp = x.detach().clone().requires_grad_()
+    gy = _rand(rng, (rows, E)).to(dev)
+    y = softermax_op(x)
+    yp = softermax_rows_ref(xp)
+    (gx,) = torch.autograd.grad(y, x, gy)
+    (gxp,) = torch.autograd.grad(yp, xp, gy)
+    err6 = (y - yp).abs().max().item()
+    err6b = (gx - gxp).abs().max().item()
+    check(err6 <= 1e-5 and err6b <= 1e-5,
+          f"{tag} (e) K6 at ({rows}, {E}): forward {err6}, backward "
+          f"{err6b} > 1e-5")
+    xd = x.detach()
+    xs = xd * math.log(2)
+    k6 = _reading(err6, _time_ms(lambda: softermax_rows(xd), flush),
+                  _time_ms(lambda: softermax_rows_ref(xd), flush),
+                  2 * xd.numel() * 4, 5 * xd.numel(),
+                  _time_ms(lambda: torch.softmax(xs, dim=-1), flush),
+                  peak="float32")
+    k6["backward_max_abs_err"] = err6b
+    _restore_counts(saved)
+    for name, e, what in (
+            ("flash_attention", k3, f"B {B}, {Hq}/{Hkv} heads, S {S}, D {D}"
+             f", causal, bf16, tensor cores; SDPA"),
+            ("flash_attention_bwd", k4, "the same; SDPA's autograd "
+             "backward"),
+            ("softermax_rows", k6, f"({rows}, {E}) f32, backward max |err| "
+             f"{err6b:.3g}; torch.softmax")):
+        print(f"{tag} (e) {name} at this path's shape ({what} "
+              f"{e['library_ms']:.4f} ms): {e['ms']:.4f} ms (plain "
+              f"{e['plain_ms']:.4f}, bound {e['bound_ms']:.4g} by "
+              f"{e['bound_by']}); max |err| vs plain {e['max_abs_err']:.3g}"
+              f"; {card}")
+    del flush
+    _free()
+    return {"flash_attention": k3, "flash_attention_bwd": k4,
+            "softermax_rows": k6}
+
+
+def _ft_entry_points(tag, dev, card):
+    """(f) The entry points on the card: ``launch.train`` at hymba-1.5b's
+    full width (B 1, S 1024, 2 steps) and on the reduced deepseek and
+    rwkv6; ``examples/train_lm.py --preset tiny`` for 5 steps;
+    ``examples/serve_lm.py`` at its reduced default, its greedy streams
+    those of a CPU engine over the same weights (drawn on the card, moved
+    to the CPU) and prompts. Their launches do not count."""
+    import torch
+    from repro_torch.examples import serve_lm, train_lm
+    from repro_torch.models.registry import (get_config, model_fns,
+                                             reduce_config)
+    from repro_torch.models.schema import tree_map
+    from repro_torch.serve import ContinuousEngine
+    for argv in (["--arch", "hymba-1.5b", "--batch", "1", "--seq", "1024",
+                  "--steps", "2"],
+                 ["--arch", "deepseek-v2-236b", "--reduced", "--steps", "3"],
+                 ["--arch", "rwkv6-7b", "--reduced", "--steps", "3"]):
+        _, lines, out = _launcher(tag, "train", argv)
+        h = out["history"]
+        done = [ln for ln in lines if ln.startswith("done on cuda")]
+        check(len(h) == int(argv[-1]) and done and
+              all(math.isfinite(x) for x in h),
+              f"{tag} (f) launch.train {' '.join(argv)}: {h}, {lines[-3:]}")
+        print(f"{tag} (f) launch.train {' '.join(argv)}: {done[0]}")
+        del out
+        _free()
+    saved = _save_counts()
+    try:
+        t0 = time.perf_counter()
+        out = train_lm.main(["--preset", "tiny", "--steps", "5"])
+        t_train = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        srv = serve_lm.main([])
+        t_serve = time.perf_counter() - t0
+    finally:
+        _restore_counts(saved)
+    h = out["history"]
+    check(len(h) == 5 and all(math.isfinite(x) for x in h),
+          f"{tag} (f) examples/train_lm.py: {h}")
+    cfg = reduce_config(get_config("qwen3-4b"))
+    params = tree_map(lambda a: a.cpu(), model_fns(cfg).init(
+        torch.Generator(device=dev).manual_seed(0)))
+    eng = ContinuousEngine(cfg, params, block_size=16, num_blocks=64,
+                           max_batch=4, max_len=48, device="cpu")
+    hs = [eng.submit(p, 16) for p in srv["prompts"]]
+    got = eng.run()
+    want = {h_.req_id: list(got[h_.req_id].tokens) for h_ in hs}
+    check(srv["tokens"] == want,
+          f"{tag} (f) examples/serve_lm.py: the card's streams "
+          f"{srv['tokens']} differ from the CPU's {want}")
+    print(f"{tag} (f) examples/train_lm.py --preset tiny --steps 5: loss "
+          f"{h[0]:.4f} -> {h[-1]:.4f} ({t_train:.1f} s); "
+          f"examples/serve_lm.py: {len(want)} greedy streams of 16 tokens "
+          f"equal to a CPU engine's on the same weights ({t_serve:.1f} s)")
+
+
+def phase_family_train(dev, card):
+    """34. (T) Training of the MLA, hybrid and RWKV-6 families on the card.
+    Returns this path's readings of K3, K4 and K6 for the ``kernels``
+    line."""
+    import torch
+    tag = "[34]"
+    t_phase = time.perf_counter()
+    _free()
+    print(f"{tag} memory_allocated at the phase's start: "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    _ft_card_vs_cpu(tag, dev)
+    _free()
+    k6 = _ft_deepseek(tag, dev, card)
+    k3, k4 = _ft_hymba(tag, dev, card)
+    _ft_rwkv(tag, dev, card)
+    out = _ft_kernels(tag, dev, card)
+    _ft_entry_points(tag, dev, card)
+    print(f"{tag} phase time {time.perf_counter() - t_phase:.1f} s; {card}")
+    out["flash_attention"]["launches"] = k3
+    out["flash_attention_bwd"]["launches"] = k4
+    out["softermax_rows"]["launches"] = k6
+    return out
+
+
 def _row(name, src, replaces, launches, per_step, err, ms, plain, nbytes,
          flops, library=None, peak="bfloat16"):
     """One kernel's entry of the ``kernels`` line; ``peak`` names the rate
@@ -6666,6 +7328,7 @@ def main() -> int:
     family_path = phase_families(dev, card)
     whisper_path = phase_whisper(dev, card)
     parallel_path = phase_parallel(dev, card)
+    family_train_path = phase_family_train(dev, card)
     for k in kernels:
         k["card"] = card
         if k["name"] in moe_path:
@@ -6676,6 +7339,8 @@ def main() -> int:
             k["whisper"] = whisper_path[k["name"]]
         if k["name"] in parallel_path:
             k["parallel"] = parallel_path[k["name"]]
+        if k["name"] in family_train_path:
+            k["families_train"] = family_train_path[k["name"]]
         lib = "" if k["library_ms"] is None else \
             f", library {k['library_ms']:.4f} ms"
         if "earlier_ms" in k:

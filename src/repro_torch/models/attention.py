@@ -36,6 +36,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.numerics import LOG2_E, NEG_INF
@@ -139,6 +140,19 @@ def _out_proj(params, o, cfg: ModelConfig):
     return o.transpose(1, 2).flatten(2) @ wo.reshape(H * dh, d)
 
 
+def _chunk_step(qg, k_c, v_c, m, d, acc, valid, intmax: bool):
+    """One KV chunk of the online Softermax: (m, d, acc) updated."""
+    s = qg @ k_c.transpose(-1, -2)                       # (B,Hkv,G,Sq,chunk)
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    sl = torch.ceil(s) if intmax else s
+    m_new = torch.maximum(m, torch.amax(sl, dim=-1, keepdim=True))
+    alpha = torch.exp2(m - m_new)
+    p = torch.exp2(s - m_new)
+    acc = acc * alpha + p.to(v_c.dtype).float() @ v_c.float()
+    d = d * alpha + torch.sum(p, dim=-1, keepdim=True)
+    return m_new, d, acc
+
+
 def chunked_attention(
     q: torch.Tensor,  # (B, Hq, Sq, D) — pre-scaled
     k: torch.Tensor,  # (B, Hkv, Sk, D)
@@ -151,7 +165,15 @@ def chunked_attention(
     q_offset: int = 0,
 ) -> torch.Tensor:
     """Online Softermax over KV chunks; scores and the A·V accumulate in
-    fp32, ``p`` is cast to V's dtype before A·V (as in the JAX package)."""
+    fp32, ``p`` is cast to V's dtype before A·V (as in the JAX package).
+
+    Where a gradient is wanted each chunk's step is checkpointed
+    (non-reentrant, so also inside a remat layer's recompute): autograd
+    keeps only the carried (m, d, acc) per chunk and recomputes one chunk's
+    scores at a time in the backward. Otherwise it keeps four fp32
+    score-sized tensors of every chunk (the scores, their IntMax ceil, p
+    and p's f32 copy): ~34 GB for one of deepseek-v2's 128-head MLA layers
+    at S 4096 in chunks of 512. The values are the same."""
     B, Hq, Sq, D = q.shape
     _, Hkv, Sk, _ = k.shape
     Dv = v.shape[-1]
@@ -170,24 +192,22 @@ def chunked_attention(
     d = torch.zeros_like(m)
     acc = torch.zeros((B, Hkv, group, Sq, Dv), dtype=torch.float32,
                       device=dev)
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
     for c in range(n_chunks):
         k_c = k[:, :, None, c * chunk:(c + 1) * chunk].float()
         v_c = v[:, :, None, c * chunk:(c + 1) * chunk]
-        s = qg @ k_c.transpose(-1, -2)                   # (B,Hkv,G,Sq,chunk)
         k_pos = c * chunk + torch.arange(chunk, device=dev)
         valid = (k_pos < Sk)[None, :]
         if causal:
             valid = valid & (q_pos[:, None] >= k_pos[None, :])
         if window > 0:
             valid = valid & (q_pos[:, None] - k_pos[None, :] < window)
-        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
-        sl = torch.ceil(s) if intmax else s
-        m_new = torch.maximum(m, torch.amax(sl, dim=-1, keepdim=True))
-        alpha = torch.exp2(m - m_new)
-        p = torch.exp2(s - m_new)
-        acc = acc * alpha + p.to(v_c.dtype).float() @ v_c.float()
-        d = d * alpha + torch.sum(p, dim=-1, keepdim=True)
-        m = m_new
+        if remat:
+            m, d, acc = checkpoint(_chunk_step, qg, k_c, v_c, m, d, acc,
+                                   valid, intmax, use_reentrant=False)
+        else:
+            m, d, acc = _chunk_step(qg, k_c, v_c, m, d, acc, valid, intmax)
     pos = d > 0
     o = torch.where(pos, acc / torch.where(pos, d, torch.ones_like(d)),
                     torch.zeros_like(acc))

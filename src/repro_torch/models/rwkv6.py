@@ -97,10 +97,11 @@ def _wkv_scan(r, k, v, w, u, state0):
     S = state0
     ys = []
     uu = u[None, :, :, None]
-    for t in range(r.shape[1]):
-        kv = k[:, t, :, :, None] * v[:, t, :, None, :]      # (B, H, n, n)
-        ys.append((r[:, t, :, None, :] @ (S + uu * kv))[:, :, 0])
-        S = w[:, t, :, :, None] * S + kv
+    # unbind, not r[:, t]: see models/hymba.py (the backward stays linear)
+    for r_t, k_t, v_t, w_t in zip(*(a.unbind(1) for a in (r, k, v, w))):
+        kv = k_t[..., :, None] * v_t[..., None, :]           # (B, H, n, n)
+        ys.append((r_t[..., None, :] @ (S + uu * kv)).squeeze(-2))
+        S = w_t[..., :, None] * S + kv
     return torch.stack(ys, 1), S
 
 

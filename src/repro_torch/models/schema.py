@@ -96,6 +96,11 @@ def unstack_layers(params):
         for name in STACKS if name in params}}
 
 
+def num_params(schema: Schema) -> int:
+    """The number of scalars the schema's leaves hold."""
+    return sum(math.prod(ps.shape) for ps in tree_leaves(schema))
+
+
 def _init_leaf(ps: ParamSpec, generator: torch.Generator,
                dtype: torch.dtype) -> torch.Tensor:
     dev = generator.device
