@@ -375,6 +375,20 @@ Phases, in order; any failure raises and exits non-zero:
    ``family_train_reading`` runs (c)/(d)'s readings alone at any S (the
    S 4096 readings of ``PERF.md``).
 
+35. (A) The analytic layer on the card (``phase_analytic``): no drive and
+   no allocation. For every step an earlier phase timed (phase 9's llama
+   training steps, phase 5's one-shot paged decode steps, phase 34's
+   deepseek in both MLA forms, hymba and rwkv6 steps, phase 32's flash
+   training step of whisper-base), its config cut as the phase ran it and
+   a ``ShapeConfig`` of its measured batch and length: analytic and model
+   FLOPs (``repro_torch.launch``), the compute term against the roofline's
+   H100 entry at bf16, the measured seconds (min-max of the timed steps),
+   ``mfu`` = model FLOPs / (seconds x the bf16 peak) and the analytic
+   FLOPs' share of the peak the same way. A step no earlier phase timed
+   fails the phase. Then ``input_specs`` and ``model_fns(cfg).abstract()``
+   of every grid cell that ``cell_supported`` lets run, all on the meta
+   device, with ``torch.cuda.memory_allocated()`` unchanged.
+
 Phase 4 also runs one engine with ``attention_impl="flash"``, whose one-shot
 prefill goes through K3.
 
@@ -396,8 +410,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
+from repro_torch.launch.roofline import H100_SXM  # noqa: E402
+
+HBM_BYTES_PER_S = H100_SXM.hbm_bw
+PEAK_FLOPS = {dt: H100_SXM.peak(dt) for dt in ("bfloat16", "float32")}
 BF16_ATOL, F32_ATOL = 2e-2, 1e-5
 
 
@@ -713,6 +729,16 @@ def _stream_share(a, b):
     return float((a == b).mean()), int((a == b).all(axis=1).sum())
 
 
+def _timed_step(name, cfg, kind, B, S, seconds):
+    """A step an earlier phase timed, for phase 35: its config as the phase
+    ran it, a ``ShapeConfig`` of the measured batch and length, and the
+    synced seconds of each timed step."""
+    from repro_torch.configs.base import ShapeConfig
+    return {"name": name, "cfg": cfg,
+            "shape": ShapeConfig(name, kind, int(S), int(B)),
+            "seconds": [float(t) for t in seconds]}
+
+
 def phase_full_width(dev):
     """Full-width llama3.2-3b in bf16: one-shot, chunked, shared-prefix
     resubmit, int8 pool; every K2 launch of the bf16 chunked runs on the
@@ -722,7 +748,8 @@ def phase_full_width(dev):
     Under the reference's init the logits are decisive at every step and
     flip between any two summation orders (PERF.md), so the shares
     are read, not gated; phase 13's weights gate chunked against static
-    streams. Returns the chunked run's launch counts."""
+    streams. Returns the chunked run's launch counts and the one-shot
+    run's decode steps (``_timed_step``: all 8 rows decode in each)."""
     import numpy as np
     import torch
     from repro_torch.kernels.flash_prefill_paged import flash_prefill_paged
@@ -748,7 +775,7 @@ def phase_full_width(dev):
             ("chunked-256", dict(prefill_chunk=256), prompts),
             ("int8-chunked-256", dict(prefill_chunk=256, kv_dtype="int8"),
              prompts)]
-    main_counts = None
+    main_counts = decode = None
     streams = {}
     for name, kw, ps in runs:
         eng = ContinuousEngine(cfg, params, device=dev, **base, **kw)
@@ -797,6 +824,13 @@ def phase_full_width(dev):
                   f"(tensor cores {k2_tc})")
             if label == "chunked-256":
                 main_counts = (k1, k2)
+            if label == "one-shot":
+                # the cache holds each prompt and the tokens generated so
+                # far, max_new // 2 on average over the decode steps
+                decode = _timed_step(
+                    "llama3.2-3b paged decode", cfg, "decode", len(batch),
+                    round(np.mean(lens)) + max_new // 2,
+                    [t / 1e3 for t in dec_ms])
             if label in ("one-shot", "chunked-256"):
                 streams[label] = np.array([r.tokens for r in res])
         del eng
@@ -838,7 +872,7 @@ def phase_full_width(dev):
     while eng.sched.has_work():
         eng.step()
     eng.drain()
-    return main_counts
+    return main_counts, decode
 
 
 def _kernel_us(step, n_steps: int):
@@ -1345,7 +1379,8 @@ def _true_fan_in(params):
 
 def phase_train_full_width(dev):
     """Full-width llama3.2-3b training: one chunked (plain) step, then three
-    flash steps through train() from the same weights and batch."""
+    flash steps through train() from the same weights and batch. Returns
+    the K3/K4 launches and the flash steps (``_timed_step``)."""
     import numpy as np
     import torch
     from repro_torch.configs.base import TRAIN_4K, TrainConfig
@@ -1454,7 +1489,8 @@ def phase_train_full_width(dev):
         "flash_bwd_dq_tc_kernel")))
     del out, params, state
     torch.cuda.empty_cache()
-    return (k3, k4)
+    return (k3, k4), _timed_step("llama3.2-3b train", cfg, "train", B, S,
+                                 [dt for _, dt, _ in rows])
 
 
 def _ptxas_kernels(report, sources):
@@ -5814,7 +5850,8 @@ def _whisper_kernels(tag, dev, card):
 
 def phase_whisper(dev, card):
     """32. (R) whisper-base, whole, at full width. Returns this path's
-    readings of K3, K4 and K5 for the ``kernels`` line."""
+    readings of K3, K4 and K5 for the ``kernels`` line and its flash
+    training step (``_timed_step``)."""
     import numpy as np
     import torch
     from repro_torch.configs.base import TrainConfig
@@ -6029,7 +6066,8 @@ def phase_whisper(dev, card):
     out["flash_attention_bwd"]["launches"] = k34[1]
     out["flash_decode"]["bf16"]["launches"] = k5_bf16
     out["flash_decode"]["float32"]["launches"] = k5_f32
-    return out
+    return out, _timed_step("whisper-base train", cfg, "train", B,
+                            WHISPER_SLOTS, [rows["flash"][1]])
 
 
 PARALLEL_LAYERS = 2      # phase 33: llama3.2-3b's depth cut for the DDP steps
@@ -6751,7 +6789,8 @@ def _ft_deepseek(tag, dev, card):
     """(b) deepseek-v2-236b cut to its dense head block + 2 MoE layers of
     32 routed experts, every width as published, S 4096, B 1, bf16
     compute, fp32 master weights and AdamW, remat full: two steps in each
-    MLA form from the same weights. Returns the K6 launches."""
+    MLA form from the same weights. Returns the K6 launches and each
+    form's steps (``_timed_step``)."""
     import dataclasses
     import torch
     from repro_torch.configs.base import TRAIN_4K, TrainConfig
@@ -6768,7 +6807,7 @@ def _ft_deepseek(tag, dev, card):
     n = num_params(model_fns(cfg).schema)
     tc = TrainConfig(total_steps=2, warmup_steps=1, learning_rate=3e-4)
     want = _ft_want(cfg, 2)
-    first, k6 = {}, 0
+    first, k6, timed = {}, 0, []
     for form in ("expanded", "absorbed"):
         c = cfg.replace(opt_mla_absorbed=form == "absorbed")
         params, t_init = _ft_master(c, dev)
@@ -6791,6 +6830,8 @@ def _ft_deepseek(tag, dev, card):
                   f"{m['grad_norm']:.4f}, {dt:.3f} s ({S / dt:.0f} "
                   f"tokens/s), K6 {launched[5]}")
         first[form] = rows[0][0]["loss"]
+        timed.append(_timed_step(f"deepseek-v2-236b {form} train", c,
+                                 "train", 1, S, [r[1] for r in rows]))
         print(f"{tag} (b) deepseek-v2-236b, {form} MLA, cut to "
               f"{cfg.n_layers} of 60 layers (the dense head block + {n_moe}"
               f" MoE layers) and {DEEPSEEK_TRAIN_EXPERTS} of 160 routed "
@@ -6807,7 +6848,7 @@ def _ft_deepseek(tag, dev, card):
           f"{first['expanded']}: {rel} > {DEEPSEEK_FORMS_TOL}")
     print(f"{tag} (b) absorbed vs expanded step-0 loss: relative diff "
           f"{rel:.3g} (gate {DEEPSEEK_FORMS_TOL}, bf16)")
-    return k6
+    return k6, timed
 
 
 def _scan_share(tag, label, kind, cfg, B, S, layers, step_s):
@@ -6930,7 +6971,7 @@ def _ft_hymba(tag, dev, card):
     grad norm and every layer's attention-weight gradients held against
     the chunked pass (``WHISPER_TRAIN_TOL``, ``WHISPER_GRAD_TOL``), the
     second profiled; the scan loop's share. Returns (K3, K4) launches of
-    the two flash steps."""
+    the two flash steps and the unprofiled one (``_timed_step``)."""
     import torch
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data import SyntheticLMData
@@ -7012,17 +7053,22 @@ def _ft_hymba(tag, dev, card):
     _free()
     _scan_share(tag, label, "hymba", cfg, B, S, L, rows[0][1])
     _free()
-    return tuple(sum(r[2][i] for r in rows) for i in (2, 3))
+    return (tuple(sum(r[2][i] for r in rows) for i in (2, 3)),
+            _timed_step("hymba-1.5b train", flash, "train", B, S,
+                        [r[1] for r in rows if r[4] is None]))
 
 
 def _ft_rwkv(tag, dev, card):
     """(d) rwkv6-7b cut to its first 8 of 32 layers, every width as
     published, bf16, S 1024, two steps (the second profiled): finite
-    metrics, no kernel."""
+    metrics, no kernel. Returns the unprofiled step (``_timed_step``)."""
     from repro_torch.models.registry import get_config
     cfg = get_config("rwkv6-7b").replace(n_layers=RWKV_TRAIN_LAYERS)
-    _ft_long(tag, f"(d) rwkv6-7b cut to {RWKV_TRAIN_LAYERS} of 32 layers",
-             cfg, RWKV_TRAIN_ROWS, RWKV_TRAIN_SEQ, dev, card, kind="rwkv")
+    rows = _ft_long(tag, f"(d) rwkv6-7b cut to {RWKV_TRAIN_LAYERS} of 32 "
+                    f"layers", cfg, RWKV_TRAIN_ROWS, RWKV_TRAIN_SEQ, dev,
+                    card, kind="rwkv")
+    return _timed_step("rwkv6-7b train", cfg, "train", RWKV_TRAIN_ROWS,
+                       RWKV_TRAIN_SEQ, [r[1] for r in rows if r[4] is None])
 
 
 def family_train_reading(arch, seq, rows, layers=None):
@@ -7212,7 +7258,7 @@ def _ft_entry_points(tag, dev, card):
 def phase_family_train(dev, card):
     """34. (T) Training of the MLA, hybrid and RWKV-6 families on the card.
     Returns this path's readings of K3, K4 and K6 for the ``kernels``
-    line."""
+    line and the timed training steps (``_timed_step``)."""
     import torch
     tag = "[34]"
     t_phase = time.perf_counter()
@@ -7221,16 +7267,97 @@ def phase_family_train(dev, card):
           f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
     _ft_card_vs_cpu(tag, dev)
     _free()
-    k6 = _ft_deepseek(tag, dev, card)
-    k3, k4 = _ft_hymba(tag, dev, card)
-    _ft_rwkv(tag, dev, card)
+    k6, timed = _ft_deepseek(tag, dev, card)
+    (k3, k4), hymba_step = _ft_hymba(tag, dev, card)
+    timed += [hymba_step, _ft_rwkv(tag, dev, card)]
     out = _ft_kernels(tag, dev, card)
     _ft_entry_points(tag, dev, card)
     print(f"{tag} phase time {time.perf_counter() - t_phase:.1f} s; {card}")
     out["flash_attention"]["launches"] = k3
     out["flash_attention_bwd"]["launches"] = k4
     out["softermax_rows"]["launches"] = k6
-    return out
+    return out, timed
+
+
+ANALYTIC_STEPS = ("llama3.2-3b train", "llama3.2-3b paged decode",
+                  "deepseek-v2-236b expanded train",
+                  "deepseek-v2-236b absorbed train", "hymba-1.5b train",
+                  "rwkv6-7b train", "whisper-base train")
+
+
+def _span(values, fmt):
+    """``min–max`` of ``values`` in ``fmt``, one number when they agree."""
+    lo, hi = format(min(values), fmt), format(max(values), fmt)
+    return lo if lo == hi else f"{lo}–{hi}"
+
+
+def phase_analytic(steps, card):
+    """35. (A) The analytic layer on the card: each of ``ANALYTIC_STEPS``
+    (``_timed_step`` readings of phases 5, 9, 32 and 34) against the
+    roofline's H100 entry; every supported grid cell's inputs and
+    parameters as meta tensors. Runs no model and allocates nothing."""
+    import torch
+    from repro_torch.configs.base import ALL_SHAPES
+    from repro_torch.launch.analytic import analytic_flops
+    from repro_torch.launch.roofline import Roofline, model_flops
+    from repro_torch.models.registry import (GRID_ARCHS, cell_supported,
+                                             get_config, input_specs,
+                                             model_fns)
+    from repro_torch.models.schema import tree_leaves
+    tag = "[35]"
+    t_phase = time.perf_counter()
+    peak = H100_SXM.peak("bfloat16")
+    by_name = {s["name"]: s for s in steps if s is not None}
+    check(set(by_name) <= set(ANALYTIC_STEPS),
+          f"{tag} readings of unknown steps: "
+          f"{sorted(set(by_name) - set(ANALYTIC_STEPS))}")
+    for name in ANALYTIC_STEPS:
+        step = by_name.get(name)
+        check(step is not None and len(step["seconds"]) > 0 and all(
+            math.isfinite(t) and t > 0 for t in step["seconds"]),
+            f"{tag} {name}: no earlier phase timed this step in the run")
+        cfg, shape, secs = step["cfg"], step["shape"], step["seconds"]
+        af, mf = analytic_flops(cfg, shape), model_flops(cfg, shape)
+        roof = Roofline(flops_per_chip=0.0, bytes_per_chip=0.0,
+                        collective_per_chip=0.0, chips=1, model_flops=mf,
+                        collective_breakdown={}, analytic_flops=af,
+                        chip=H100_SXM)
+        print(f"{tag} {name}, {cfg.n_layers} layers, B {shape.global_batch}"
+              f" x S {shape.seq_len}: analytic {af:.4g} FLOPs, model "
+              f"{mf:.4g} FLOPs, compute term {roof.compute_s * 1e3:.3f} ms "
+              f"at the {H100_SXM.name} bf16 peak ({peak / 1e12:.0f} "
+              f"TFLOP/s; the memory term waits for the dry run); measured "
+              f"{_span(secs, '.4f')} s over {len(secs)} timed step(s); mfu "
+              f"{_span([100 * mf / (t * peak) for t in secs], '.3g')}%, "
+              f"analytic-FLOPs share "
+              f"{_span([100 * af / (t * peak) for t in secs], '.3g')}%; "
+              f"{card}")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    n_cells = n_leaves = n_bytes = 0
+    for arch in GRID_ARCHS:
+        cfg = get_config(arch)
+        params = tree_leaves(model_fns(cfg).abstract())
+        for shape in ALL_SHAPES:
+            if cell_supported(arch, shape) is not None:
+                continue
+            leaves = params + tree_leaves(input_specs(cfg, shape))
+            check(all(x.is_meta for x in leaves),
+                  f"{tag} {arch} x {shape.name}: a tensor off the meta "
+                  f"device")
+            n_cells += 1
+            n_leaves += len(leaves)
+            n_bytes += sum(x.numel() * x.element_size() for x in leaves)
+    after = torch.cuda.memory_allocated()
+    check(after == before and n_cells == 3 * len(GRID_ARCHS) + 2,
+          f"{tag} meta specs of {n_cells} cells: memory_allocated {before} "
+          f"-> {after}")
+    print(f"{tag} input_specs and model_fns(cfg).abstract() of the {n_cells}"
+          f" supported grid cells (deepseek-v2-236b whole, the 524,288-"
+          f"token caches): {n_leaves} meta tensors standing for "
+          f"{n_bytes / 1e12:.2f} TB, memory_allocated unchanged at "
+          f"{after} bytes")
+    print(f"{tag} phase time {time.perf_counter() - t_phase:.2f} s; {card}")
 
 
 def _row(name, src, replaces, launches, per_step, err, ms, plain, nbytes,
@@ -7284,7 +7411,7 @@ def main() -> int:
 
     phase_kernel_parity(dev)
     phase_engine_parity(dev)
-    main_counts = phase_full_width(dev)
+    main_counts, decode_step = phase_full_width(dev)
     from repro_torch.models.registry import get_config
     print("[6] sm clock, power draw, temperature: " +
           card_line("clocks.sm,power.draw,temperature.gpu"))
@@ -7292,7 +7419,7 @@ def main() -> int:
     kernels = phase_kernel_times(dev, main_counts, n_layers)
     flash_errs = phase_flash_parity(dev)
     f32_counts = phase_train_parity(dev)
-    train_counts = phase_train_full_width(dev)
+    train_counts, train_step = phase_train_full_width(dev)
     print("[10] sm clock, power draw, temperature: " +
           card_line("clocks.sm,power.draw,temperature.gpu"))
     kernels += phase_flash_times(dev, train_counts, f32_counts, flash_errs,
@@ -7326,9 +7453,11 @@ def main() -> int:
     phase_fleet(dev, card)
     moe_path = phase_moe(dev, card)
     family_path = phase_families(dev, card)
-    whisper_path = phase_whisper(dev, card)
+    whisper_path, whisper_step = phase_whisper(dev, card)
     parallel_path = phase_parallel(dev, card)
-    family_train_path = phase_family_train(dev, card)
+    family_train_path, family_steps = phase_family_train(dev, card)
+    phase_analytic([train_step, decode_step, *family_steps, whisper_step],
+                   card)
     for k in kernels:
         k["card"] = card
         if k["name"] in moe_path:

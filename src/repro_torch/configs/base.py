@@ -7,7 +7,7 @@ differ: ``compute_dtype_`` and ``param_dtype_`` return ``torch.dtype``s.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -139,9 +139,19 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
 
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
 
-# The training shape cell of the LM family (sequence length 4096).
+
+# The four shape cells of the LM family.
 TRAIN_4K = ShapeConfig("train_4k", "train", 4096, 256)
+PREFILL_32K = ShapeConfig("prefill_32k", "prefill", 32768, 32)
+DECODE_32K = ShapeConfig("decode_32k", "decode", 32768, 128)
+LONG_500K = ShapeConfig("long_500k", "decode", 524288, 1)
+
+ALL_SHAPES: Tuple[ShapeConfig, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K,
+                                       LONG_500K)
 
 
 @dataclasses.dataclass(frozen=True)

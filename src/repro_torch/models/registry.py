@@ -1,20 +1,24 @@
 """Architecture registry: ``--arch <id>`` → config; reduced CPU configs;
 parameter init and the uniform model interface (``model_fns``) over the
 two model assemblies: the decoder-only LM (dense, MoE, MLA, rwkv and hybrid
-families) and the encoder-decoder whisper."""
+families) and the encoder-decoder whisper; which (arch, shape) cells run
+(``cell_supported``) and their inputs as meta tensors (``input_specs``)."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from types import SimpleNamespace
+from typing import Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import MLAConfig, ModelConfig, SSMConfig
+from repro_torch.configs.base import (MLAConfig, ModelConfig, ShapeConfig,
+                                      SSMConfig)
 from repro_torch.models import lm as lm_mod
 from repro_torch.models import whisper as whisper_mod
 from repro_torch.models.lm import lm_schema
-from repro_torch.models.schema import init_params, logical_specs
+from repro_torch.models.schema import (abstract_params, init_params,
+                                       logical_specs)
 
 ARCH_IDS = (
     "moonshot-v1-16b-a3b",
@@ -37,10 +41,22 @@ _MODULES = {arch: arch.replace("-", "_").replace(".", "_")
 # The 10 assigned archs (bert_* are paper-eval only).
 GRID_ARCHS = ARCH_IDS[:10]
 
+# long_500k runs only for sub-quadratic context archs.
+SUBQUADRATIC = {"hymba-1.5b", "rwkv6-7b"}
+
 
 def get_config(arch: str) -> ModelConfig:
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     return mod.CONFIG
+
+
+def cell_supported(arch: str, shape: ShapeConfig) -> Optional[str]:
+    """None if the (arch, shape) cell runs; else the reference's skip
+    reason, word for word."""
+    if shape.name == "long_500k" and arch not in SUBQUADRATIC:
+        return ("full-attention arch: 524k-token dense decode is the "
+                "regime DESIGN.md documents as skipped (sub-quadratic only)")
+    return None
 
 
 def reduce_config(cfg: ModelConfig) -> ModelConfig:
@@ -104,7 +120,8 @@ def check_decoder_only(cfg: ModelConfig, what: str) -> None:
 def model_fns(cfg: ModelConfig) -> SimpleNamespace:
     """The uniform interface, as in the JAX registry: ``schema``, ``specs``
     (its tree of logical-axis tuples), ``init(generator)`` (parameters on
-    ``generator.device``), ``forward(params, batch)`` (logits), ``loss(params, batch)`` (cross
+    ``generator.device``), ``abstract()`` (the same tree as meta tensors,
+    no memory), ``forward(params, batch)`` (logits), ``loss(params, batch)`` (cross
     entropy with its own z-loss weight, as the reference's registry keeps
     it, plus the MoE layers' aux loss; metrics ``{"ce", "aux"}``), and the
     serving steps ``prefill(params, batch, max_len)``,
@@ -125,6 +142,7 @@ def model_fns(cfg: ModelConfig) -> SimpleNamespace:
             specs=logical_specs(schema),
             init=lambda generator: init_params(schema, generator,
                                                cfg.param_dtype_),
+            abstract=lambda: abstract_params(schema, cfg.param_dtype_),
             forward=lambda p, batch: whisper_mod.whisper_forward(
                 p, batch["frames"], batch["tokens"], cfg),
             loss=lambda p, batch: whisper_mod.whisper_loss(p, batch, cfg),
@@ -144,6 +162,7 @@ def model_fns(cfg: ModelConfig) -> SimpleNamespace:
         specs=logical_specs(schema),
         init=lambda generator: init_params(schema, generator,
                                            cfg.param_dtype_),
+        abstract=lambda: abstract_params(schema, cfg.param_dtype_),
         forward=lambda p, batch: lm_mod.lm_forward(p, batch["tokens"],
                                                    cfg)[0],
         loss=lambda p, batch: lm_mod.lm_loss(p, batch, cfg),
@@ -155,3 +174,28 @@ def model_fns(cfg: ModelConfig) -> SimpleNamespace:
             cfg, batch, max_len),
         cache_logical=lambda: lm_mod.cache_logical(cfg),
     )
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, object]:
+    """The inputs of the step of this (arch, shape) cell as meta tensors
+    (shapes and dtypes, no memory), keyed as the reference's.
+
+    train/prefill: int32 token batches (whisper adds its float32 frame
+    embeddings). decode: one token a sequence and the cache at
+    ``shape.seq_len`` (``cache_spec``)."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def meta(shape_, dtype=torch.int32):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+
+    frames = {}
+    if cfg.family == "encdec":
+        frames["frames"] = meta((B, cfg.enc_positions, cfg.d_model),
+                                torch.float32)
+    if shape.kind == "train":
+        return {**frames, "tokens": meta((B, S)), "labels": meta((B, S))}
+    if shape.kind == "prefill":
+        return {**frames, "tokens": meta((B, S))}
+    cache = {k: meta(sh, dt)
+             for k, (sh, dt) in model_fns(cfg).cache_spec(B, S).items()}
+    return {"tokens1": meta((B,)), "cache": cache}

@@ -1,7 +1,8 @@
 """Schema-driven parameters: one definition → initialized tensors.
 
 Each module defines a nested dict of ``ParamSpec`` (shape, logical axes,
-initializer); ``init_params`` materializes it, and ``logical_specs``
+initializer); ``init_params`` materializes it, ``abstract_params`` gives
+its meta tensors (shapes and dtypes, no memory), and ``logical_specs``
 gives the same-structured tree of logical-axis tuples that the sharding
 rules engine (``parallel/sharding.py``) maps to mesh axes. Layer stacks
 keep the JAX package's leading ``(n_layers, …)`` axis (``stack_schema``),
@@ -94,6 +95,13 @@ def unstack_layers(params):
         name: [layer_params(params[name], i)
                for i in range(n_stacked(params[name]))]
         for name in STACKS if name in params}}
+
+
+def abstract_params(schema: Schema, dtype: torch.dtype = torch.float32):
+    """The schema's tree of tensors on the meta device: each leaf's shape in
+    ``dtype``, no memory allocated (the reference's ShapeDtypeStructs)."""
+    return tree_map(lambda ps: torch.empty(ps.shape, dtype=dtype,
+                                           device="meta"), schema)
 
 
 def num_params(schema: Schema) -> int:
