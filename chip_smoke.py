@@ -389,6 +389,22 @@ Phases, in order; any failure raises and exits non-zero:
    of every grid cell that ``cell_supported`` lets run, all on the meta
    device, with ``torch.cuda.memory_allocated()`` unchanged.
 
+36. (P) parallel/'s implicit placement on the card (``phase_placement``):
+   on the one-rank NCCL ``(1, 1)`` mesh of ``make_host_mesh()`` (every
+   spec still takes its ``Shard`` placements there, on mesh dims of size
+   1), phase 9's llama3.2-3b (flash, B 1 x 4096, true fan-in weights) for
+   ``PLACEMENT_STEPS`` plain steps, then, from the same weights drawn
+   again, as many steps with the parameters placed by ``param_sharding``
+   under ``DEFAULT_RULES`` (DTensors; the batch distributed by the rules'
+   ``("batch", "seq")`` spec): each placed step's loss and grad norm
+   within ``PLACEMENT_TOL`` of the plain one's, K3/K4 56 launches a step
+   on either route, all on the tensor cores; each route's ms per synced
+   step, their ratio (DTensor's dispatch on the host) and peak memory,
+   read, not gated; K3 on DTensors at ``PERF.md`` §6's K3 shape EQUAL,
+   bit for bit, to K3 on their ``to_local()`` shards, timed. The multi-
+   rank placements are held on the CPU (``tests/test_torch_placement.py``:
+   8 gloo ranks on a (4, 2) mesh against the reference's ``Auto`` mesh).
+
 Phase 4 also runs one engine with ``attention_impl="flash"``, whose one-shot
 prefill goes through K3.
 
@@ -7377,6 +7393,180 @@ def _row(name, src, replaces, launches, per_step, err, ms, plain, nbytes,
             "library_ms": library}
 
 
+# ---------------------------------------------------------------------------
+# Phase 36: parallel/'s implicit placement on the card
+# ---------------------------------------------------------------------------
+
+PLACEMENT_STEPS = 2     # phase 36: steps of each route
+PLACEMENT_TOL = 1e-5    # phase 36: placed vs plain loss and grad norm, rel.
+
+
+def _placement_steps(cfg, dev, mesh, placed):
+    """``PLACEMENT_STEPS`` training steps of phase 9's llama3.2-3b (B 1 x
+    4096, true fan-in weights drawn from seed 0) under ``DEFAULT_RULES``
+    on ``mesh``, the parameters placed by ``param_sharding`` where
+    ``placed``. Returns per step (loss, grad norm, seconds to the sync,
+    (K3, K4, K3 on the tensor cores, K4 on the tensor cores) launches),
+    the peak memory, the parameters' types and the embedding's
+    placements."""
+    import torch
+    from repro_torch.configs.base import TRAIN_4K, TrainConfig
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.registry import model_fns
+    from repro_torch.models.schema import tree_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.sharding import (DEFAULT_RULES, place,
+                                               sharding_context)
+    from repro_torch.train import make_train_step
+    fns = model_fns(cfg)
+    tc = TrainConfig(total_steps=3, warmup_steps=1, learning_rate=3e-4)
+    data = SyntheticLMData(cfg.vocab_size, TRAIN_4K.seq_len, 1, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    with sharding_context(mesh, DEFAULT_RULES):
+        params = _true_fan_in(fns.init(
+            torch.Generator(device=dev).manual_seed(0)))
+        if placed:
+            params = place(params, fns.specs)
+        kinds = sorted({type(p).__name__ for p in tree_leaves(params)})
+        emb = getattr(params["embed"]["embedding"], "placements", None)
+        opt = adamw.init_state(params)
+        step = make_train_step(fns.loss, tc)
+        for _ in range(PLACEMENT_STEPS):
+            batch = next(data)
+            c0 = _flash_counts() + _flash_tc_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            c1 = _flash_counts() + _flash_tc_counts()
+            rows.append((float(m["loss"]), float(m["grad_norm"]), dt,
+                         tuple(b - a for a, b in zip(c0, c1))))
+    peak = torch.cuda.max_memory_allocated()
+    del params, opt, step, m
+    _free()
+    return rows, peak, kinds, emb
+
+
+def _placement_k3(tag, mesh, dev, card):
+    """K3 through ``flash_attention_op`` on DTensors placed by the
+    attention's activation spec at ``PERF.md`` §6's K3 shape (B 1, 24/8
+    heads, S 4096, D 128, causal, bf16) against the same op on their
+    ``to_local()`` shards: EQUAL, bit for bit. Device ms of each beside
+    the bound, the plain version and SDPA. Its launches do not count."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from torch.distributed.tensor import DTensor
+    from repro_torch.kernels.flash_attention import (flash_attention_op,
+                                                     flash_attention_plain)
+    from repro_torch.parallel.sharding import (DEFAULT_RULES, NamedSharding,
+                                               distribute,
+                                               logical_to_physical)
+    saved = _save_counts()
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rng = np.random.default_rng(36)
+    B, Hq, Hkv, S, D = 1, 24, 8, 4096, 128
+    logical = ("batch", "act_heads", "seq", "head_dim")
+    q = _rand(rng, (B, Hq, S, D), D ** -0.5).to(dev, torch.bfloat16)
+    k = _rand(rng, (B, Hkv, S, D)).to(dev, torch.bfloat16)
+    v = _rand(rng, (B, Hkv, S, D)).to(dev, torch.bfloat16)
+    placed = [distribute(t, NamedSharding(mesh, logical_to_physical(
+        logical, t.shape, DEFAULT_RULES, mesh))) for t in (q, k, v)]
+    local = [t.to_local() for t in placed]
+    with torch.no_grad():
+        c0 = _flash_tc_counts()[0]
+        od = flash_attention_op(*placed)
+        ol = flash_attention_op(*local)
+        ran = _flash_tc_counts()[0] - c0
+    check(isinstance(od, DTensor) and od.placements == placed[0].placements
+          and torch.equal(od.to_local(), ol) and ran == 2,
+          f"{tag} K3 on DTensors {placed[0].placements}: "
+          f"{type(od).__name__} {getattr(od, 'placements', None)}, equal "
+          f"to the local shards' {torch.equal(od.to_local(), ol)}, "
+          f"{ran} tensor-core launches")
+    pairs = B * Hq * S * (S + 1) // 2
+    el = q.element_size()
+    with torch.no_grad():
+        ms_dt = _time_ms(lambda: flash_attention_op(*placed), flush,
+                         iters=10)
+        ms_local = _time_ms(lambda: flash_attention_op(*local), flush,
+                            iters=10)
+        plain = _time_ms(lambda: flash_attention_plain(q, k, v), flush,
+                         iters=3)
+        lib = _time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=math.log(2), enable_gqa=True),
+            flush, iters=10)
+    reading = _reading(0.0, ms_dt, plain,
+                       2 * q.numel() * el + 2 * k.numel() * el
+                       + 2 * B * Hq * S * 4, 4 * D * pairs, lib)
+    print(f"{tag} K3 on DTensors placed {placed[0].placements} (B {B}, "
+          f"{Hq}/{Hkv} heads, S {S}, D {D}, causal, bf16, tensor cores): "
+          f"EQUAL to K3 on their to_local() shards; {ms_dt:.4f} ms (on "
+          f"the shards {ms_local:.4f}; plain {plain:.4f}, bound "
+          f"{reading['bound_ms']:.4f} by {reading['bound_by']}, SDPA "
+          f"{lib:.4f}); {card}")
+    del q, k, v, placed, local, od, ol, flush
+    _restore_counts(saved)
+    _free()
+    return {**reading, "shards_ms": ms_local}
+
+
+def phase_placement(dev, card):
+    """36. (P) parallel/'s implicit placement on the card. Returns this
+    path's readings of K3 and K4 for the ``kernels`` line."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh, mesh_shape
+    from repro_torch.models.registry import get_config
+    tag = "[36]"
+    t_phase = time.perf_counter()
+    mesh = make_host_mesh()
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1 and
+          mesh_shape(mesh) == {"data": 1, "model": 1},
+          f"{tag} host mesh {mesh_shape(mesh)} over {dist.get_backend()}")
+    cfg = get_config("llama3.2-3b").replace(attention_impl="flash")
+    L = cfg.n_layers
+    runs = {}
+    for placed in (False, True):
+        _reset_counts()
+        runs[placed] = _placement_steps(cfg, dev, mesh, placed)
+    (plain, peak0, kinds0, _), (rows, peak1, kinds1, emb) = \
+        runs[False], runs[True]
+    check(kinds0 == ["Tensor"] and kinds1 == ["DTensor"],
+          f"{tag} parameter types: plain {kinds0}, placed {kinds1}")
+    for s, (a, b) in enumerate(zip(plain, rows)):
+        rl = abs(b[0] - a[0]) / abs(a[0])
+        rg = abs(b[1] - a[1]) / abs(a[1])
+        check(rl <= PLACEMENT_TOL and rg <= PLACEMENT_TOL,
+              f"{tag} step {s}: placed loss {b[0]} grad norm {b[1]} vs "
+              f"plain {a[0]} {a[1]} (rel {rl:.3g}, {rg:.3g})")
+        check(b[3] == a[3] == (2 * L,) * 4,
+              f"{tag} step {s}: K3/K4 launches (all, tensor cores) placed "
+              f"{b[3]}, plain {a[3]}; expected {2 * L} each")
+        print(f"{tag} step {s}: plain loss {a[0]:.6f} grad norm "
+              f"{a[1]:.5f}, {a[2] * 1e3:.1f} ms; placed loss {b[0]:.6f} "
+              f"grad norm {b[1]:.5f}, {b[2] * 1e3:.1f} ms (rel diffs "
+              f"{rl:.3g}, {rg:.3g} <= {PLACEMENT_TOL}); placed / plain "
+              f"{b[2] / a[2]:.3f}; K3/K4 {b[3][0]}/{b[3][1]} a step, all "
+              f"on the tensor cores; {card}")
+    print(f"{tag} llama3.2-3b B 1 x 4096 on the (1, 1) mesh under "
+          f"DEFAULT_RULES, embedding placed {emb}: peak memory plain "
+          f"{peak0 / 2 ** 30:.2f} GiB, placed {peak1 / 2 ** 30:.2f} GiB; "
+          f"{card}")
+    k3 = _placement_k3(tag, mesh, dev, card)
+    dist.destroy_process_group()
+    print(f"{tag} phase time {time.perf_counter() - t_phase:.1f} s; {card}")
+    steps = {"plain_step_s": [r[2] for r in plain],
+             "placed_step_s": [r[2] for r in rows],
+             "peak_gib": [peak0 / 2 ** 30, peak1 / 2 ** 30]}
+    return {"flash_attention": {"launches": sum(r[3][0] for r in rows),
+                                **steps, "dtensor_k3": k3},
+            "flash_attention_bwd": {"launches": sum(r[3][1] for r in rows),
+                                    **steps}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7458,6 +7648,7 @@ def main() -> int:
     family_train_path, family_steps = phase_family_train(dev, card)
     phase_analytic([train_step, decode_step, *family_steps, whisper_step],
                    card)
+    placement_path = phase_placement(dev, card)
     for k in kernels:
         k["card"] = card
         if k["name"] in moe_path:
@@ -7470,6 +7661,8 @@ def main() -> int:
             k["parallel"] = parallel_path[k["name"]]
         if k["name"] in family_train_path:
             k["families_train"] = family_train_path[k["name"]]
+        if k["name"] in placement_path:
+            k["placement"] = placement_path[k["name"]]
         lib = "" if k["library_ms"] is None else \
             f", library {k['library_ms']:.4f} ms"
         if "earlier_ms" in k:

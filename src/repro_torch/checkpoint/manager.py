@@ -16,6 +16,13 @@ bfloat16 tensors are stored as float32 (exact) and cast back on restore.
 Restore: arrays are loaded on the host and moved to each template leaf's
 device and dtype, or to the ``device`` the caller names — a checkpoint
 written on the card restores onto the CPU unchanged, and back.
+
+Placed trees (DTensors): ``save`` writes each leaf's global array
+(``full_tensor()``, a collective every rank joins; rank 0 alone writes),
+and ``restore(shardings=)`` places each restored tree by a same-structure
+tree of ``parallel.sharding.NamedSharding``s. The arrays on disk do not
+depend on the mesh, so a checkpoint saved on 8 ranks restores on 1, and
+one saved on 1 restores on 8.
 """
 from __future__ import annotations
 
@@ -29,7 +36,10 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from repro_torch.parallel.sharding import distribute
 from repro_torch.utils.logging import get_logger
 
 log = get_logger("repro_torch.checkpoint")
@@ -48,6 +58,8 @@ def _children(tree):
 
 
 def _host_array(leaf) -> np.ndarray:
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         if t.dtype == torch.bfloat16:
@@ -90,6 +102,29 @@ def _unflatten_into(template, flat: Dict[str, np.ndarray], device,
         f.name: v for f, v in zip(dataclasses.fields(template), values)})
 
 
+def _place(tree, shardings):
+    """``tree`` with each tensor leaf distributed by the matching leaf of
+    the same-structure ``shardings`` (a None leaf stays as it is)."""
+    if shardings is None:
+        return tree
+    kids = _children(tree)
+    if kids is None:
+        return distribute(tree, shardings)
+    values = [_place(child, sub) for (_, child), (_, sub) in
+              zip(kids, _children(shardings))]
+    if isinstance(tree, dict):
+        return dict(zip(sorted(tree), values))
+    return dataclasses.replace(tree, **{
+        f.name: v for f, v in zip(dataclasses.fields(tree), values)})
+
+
+def _is_placed(tree) -> bool:
+    kids = _children(tree)
+    if kids is None:
+        return isinstance(tree, DTensor)
+    return any(_is_placed(c) for _, c in kids)
+
+
 def _is_metadata(tree) -> bool:
     kids = _children(tree)
     if kids is None:
@@ -110,8 +145,11 @@ class CheckpointManager:
     # ------------------------------------------------------------------ save
     def save(self, step: int, state: Dict[str, Any],
              extra_meta: Optional[Dict] = None) -> None:
-        """state: {"params": tree, "opt": AdamWState, "data": dict, ...}"""
+        """state: {"params": tree, "opt": AdamWState, "data": dict, ...}.
+        A state holding DTensors is gathered on every rank and written by
+        rank 0 alone."""
         flat: Dict[str, np.ndarray] = {}
+        placed = any(_is_placed(t) for t in state.values())
         meta = {"step": int(step), "keys": {}, **(extra_meta or {})}
         for name, tree in state.items():
             if _is_metadata(tree):
@@ -122,6 +160,8 @@ class CheckpointManager:
             flat.update({f"{name}{_SEP}{k}": v for k, v in sub.items()})
 
         self.wait()  # one in-flight save at a time
+        if placed and dist.is_initialized() and dist.get_rank() != 0:
+            return
 
         def _write():
             try:
@@ -171,10 +211,13 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, step: int, templates: Dict[str, Any],
+                shardings: Optional[Dict[str, Any]] = None,
                 device=None) -> Dict[str, Any]:
         """templates: same-structure trees (tensors give shape, dtype and
         device). Tensors land on ``device`` when given, else on their
-        template's device."""
+        template's device; ``shardings``: optional same-structure trees of
+        ``NamedSharding`` per name, by which each restored tree is placed
+        (mesh-agnostic restore)."""
         path = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
@@ -187,5 +230,8 @@ class CheckpointManager:
                 prefix = f"{name}{_SEP}"
                 flat = {k[len(prefix):]: npz[k] for k in npz.files
                         if k.startswith(prefix)}
-                out[name] = _unflatten_into(template, flat, device)
+                tree = _unflatten_into(template, flat, device)
+                if shardings and shardings.get(name) is not None:
+                    tree = _place(tree, shardings[name])
+                out[name] = tree
         return out

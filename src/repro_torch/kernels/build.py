@@ -23,6 +23,9 @@ import threading
 from pathlib import Path
 from typing import Optional
 
+import torch
+from torch.distributed.tensor import DTensor
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SMEM_LIMIT = 227 * 1024    # dynamic shared memory a Hopper block may use
@@ -201,15 +204,34 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}: {text}")
 
 
+def is_dtensor(t) -> bool:
+    # a plain tensor's exact type first: the general check costs ~0.1 us
+    # on every operand of every launch
+    return type(t) is not torch.Tensor and isinstance(t, DTensor)
+
+
+def refuse_dtensor(name: str, *ts) -> None:
+    """A ``TypeError`` naming ``name`` where an operand is a DTensor: a
+    kernel reads plain memory, and a wrapper that takes DTensors runs on
+    their ``to_local()`` shards (``kernels/dtensor.py``)."""
+    for t in ts:
+        if is_dtensor(t):
+            raise TypeError(f"{name} takes plain tensors, not a DTensor: "
+                            "run it on to_local() shards")
+
+
 def ptr(t) -> Optional[int]:
-    """Device pointer of a tensor for ctypes (None for a missing operand)."""
-    return None if t is None else t.data_ptr()
+    """Device pointer of a tensor for ctypes (None for a missing operand);
+    a DTensor, whose pointer is not its shard's, is refused."""
+    if t is None:
+        return None
+    refuse_dtensor("a kernel", t)
+    return t.data_ptr()
 
 
 def stream_ptr(device) -> int:
     """The current stream of a CUDA ``device`` as the raw ``cudaStream_t``
     (one call into the runtime, no Stream object built)."""
-    import torch
     index = device.index
     if index is None:
         index = torch.cuda.current_device()

@@ -27,9 +27,11 @@ both routes; ``.launches_tc`` counts the tensor-core route alone.
 its forward saves ``(q, k, v, o, m, d)`` and its backward recomputes P from
 the row statistics — memory-linear training. A CUDA tensor goes to the
 kernels, a CPU tensor to the plain versions (``plain.py``); there is no
-fallback between the two. ``flash_attention_op_refbwd`` pairs the same
-forward with an autograd backward through ``attention_ref``: the
-cross-check.
+fallback between the two. DTensor operands run on their local shards
+(``kernels/dtensor.py``), batch and heads kept sharded where q, k and v
+agree, the sequences and ``head_dim`` whole. ``flash_attention_op_refbwd``
+pairs the same forward with an autograd backward through
+``attention_ref``: the cross-check.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ import torch
 
 from repro_torch.core.numerics import LOG2_E
 from repro_torch.kernels import build
+from repro_torch.kernels.dtensor import HEADS, run_local
 from repro_torch.kernels.dtypes import q_code
 from repro_torch.kernels.flash_attention.plain import (
     flash_attention_bwd_plain, flash_attention_plain)
@@ -265,8 +268,11 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Trainable flash attention (the reference's ``custom_vjp``). The flags
     and the block size take no gradient; ``block_k`` is layout only — the
     kernels keep their own tiles and the plain versions walk ``block_k``
-    KV rows at a time, which changes only the order of the sums."""
-    return _FlashAttention.apply(q, k, v, causal, intmax, block_k)
+    KV rows at a time, which changes only the order of the sums.
+    DTensors run on their local shards (batch and heads)."""
+    return run_local(lambda *t: _FlashAttention.apply(
+        *t, causal, intmax, block_k), (q, k, v), (HEADS,) * 3,
+        keep=HEADS[:2])
 
 
 class _FlashAttentionRefBwd(torch.autograd.Function):

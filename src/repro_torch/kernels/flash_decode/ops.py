@@ -108,7 +108,9 @@ def lane_scratch(device, stream: int, floats: int, pairs: int):
 
 
 def _check(q, k, v, lengths):
-    """Raise on operands neither route takes; return (B, Hq, Hkv, S, D)."""
+    """Raise on operands neither route takes (a DTensor among them); return
+    (B, Hq, Hkv, S, D)."""
+    build.refuse_dtensor("flash_decode", q, k, v, lengths)
     if not q.is_cuda:
         raise ValueError("flash_decode runs on CUDA tensors only")
     devs = {t.device for t in (q, k, v, lengths)}

@@ -66,7 +66,9 @@ _RING_MAX = build.SMEM_LIMIT - 1024
 
 
 def check_operands(name, q, k_pool, v_pool, k_scale, v_scale, *index):
-    """Validate what the paged kernels take (shared by both wrappers)."""
+    """Validate what the paged kernels take (shared by both wrappers): plain
+    tensors only, as the serving path keeps them."""
+    build.refuse_dtensor(name, q, k_pool, v_pool, k_scale, v_scale, *index)
     if not q.is_cuda:
         raise ValueError(f"{name} runs on CUDA tensors only")
     dev = q.get_device()

@@ -20,7 +20,8 @@ backward is the closed-form gradient ``ln2 · y · (g − Σ g·y)`` when a
 gradient is wanted, directly otherwise — and a CPU tensor to the plain
 version ``softermax_rows_ref`` computed in float32 and returned in x's
 dtype, as the kernel computes (and as the TPU kernel does). There is no
-fallback between the two: a build or launch failure raises.
+fallback between the two: a build or launch failure raises. A DTensor
+runs on its local shards (``kernels/dtensor.py``), every row whole.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ import torch
 
 from repro_torch.core.numerics import LN_2
 from repro_torch.kernels import build
+from repro_torch.kernels.dtensor import dims, run_local
 from repro_torch.kernels.dtypes import row_code
 from repro_torch.kernels.softermax.ref import softermax_rows_ref
 
@@ -102,7 +104,13 @@ class _SoftermaxRows(torch.autograd.Function):
 def softermax_op(x: torch.Tensor, *, intmax: bool = True) -> torch.Tensor:
     """Softermax over the last axis of any shape: K6 on a CUDA tensor (the
     trainable op where a gradient is wanted), the closed form in float32 on
-    a CPU tensor."""
+    a CPU tensor; a DTensor on its local shards, each row whole."""
+    ax = dims(x)
+    return run_local(lambda t: _softermax_local(t, intmax), (x,), (ax,),
+                     keep=ax)
+
+
+def _softermax_local(x: torch.Tensor, intmax: bool) -> torch.Tensor:
     if not x.is_cuda:
         return softermax_rows_ref(x.float(), intmax).to(x.dtype)
     shape = x.shape

@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.core.softermax import softermax_fixed
 from repro_torch.kernels import build
+from repro_torch.kernels.dtensor import dims, run_local
 from repro_torch.kernels.dtypes import row_code
 from repro_torch.kernels.softermax_quant.plain import softermax_quant_plain
 
@@ -115,7 +116,15 @@ def softermax_quant_op(x: torch.Tensor, *,
                        vector_size: int = VECTOR_SIZE) -> torch.Tensor:
     """Fixed-point Softermax over the last axis of any shape: K7 on a CUDA
     tensor, the kernel's mirror on a CPU tensor; either inside the
-    trainable op where a gradient is wanted."""
+    trainable op where a gradient is wanted; a DTensor on its local
+    shards (``kernels/dtensor.py``), each row whole."""
+    ax = dims(x)
+    return run_local(lambda t: _softermax_quant_local(t, vector_size), (x,),
+                     (ax,), keep=ax)
+
+
+def _softermax_quant_local(x: torch.Tensor, vector_size: int
+                           ) -> torch.Tensor:
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
     if torch.is_grad_enabled() and x.requires_grad:

@@ -64,9 +64,12 @@ Runs on the CUDA card by default; ``--device cpu`` runs the plain PyTorch
 versions of the kernels instead (with ``--reduced`` for a CPU-sized model).
 Weights are random, drawn from ``--seed``; prompts too. The paged-engine
 options are ignored by the static engine. The run is under
-``sharding_context(make_host_mesh(), SERVE_RULES)``, as the reference's;
-``--production-mesh`` raises until ``parallel/``'s implicit placement is
-ported (ROADMAP.md Queue 1 item 6b).
+``sharding_context(mesh, SERVE_RULES)`` on ``make_host_mesh()`` or, with
+``--production-mesh``, ``make_production_mesh`` (a ValueError names the
+256 ranks it needs where the process group has fewer), as the
+reference's. The parameters stay plain tensors, as the reference's serve
+launcher places none, so every ``shard_act`` of the serving path returns
+its input.
 """
 from __future__ import annotations
 
@@ -78,7 +81,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.launch.mesh import make_host_mesh, mesh_shape
+from repro_torch.launch.mesh import (make_host_mesh, make_production_mesh,
+                                     mesh_shape)
 from repro_torch.models.lm import cast_matrix_params
 from repro_torch.models.registry import (GRID_ARCHS, check_decoder_only,
                                          get_config, init_lm_params,
@@ -197,8 +201,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "budget; requests that miss it are cancelled "
                          "(reason 'deadline'). 0 = no budget")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="the production mesh (needs ROADMAP.md Queue 1 "
-                         "item 6b, not ported)")
+                    help="the 16x16 production mesh (256 ranks)")
     ap.add_argument("--replicas", type=int, default=1,
                     help="paged engine: serve through a FleetSupervisor "
                          "over this many engine replicas (serve/"
@@ -258,13 +261,10 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
     args = parse_args(argv)
-    if args.production_mesh:
-        raise NotImplementedError(
-            "--production-mesh needs parallel/'s implicit placement on "
-            "DTensors (ROADMAP.md Queue 1 item 6b)")
-    device = resolve_device(args.device)
     own_group = not dist.is_initialized()
-    mesh = make_host_mesh(device=device)
+    mesh = make_production_mesh(device=args.device) if args.production_mesh \
+        else make_host_mesh(device=args.device)
+    device = resolve_device(args.device)
     log.info("mesh: %s", mesh_shape(mesh))
     try:
         with sharding_context(mesh, SERVE_RULES):

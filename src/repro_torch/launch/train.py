@@ -1,6 +1,6 @@
 """Training launcher: a decoder-only LM (dense, MoE, MLA, rwkv or hybrid
 family) through the fault-tolerant loop (checkpoint/restart, straggler
-monitor) on one device.
+monitor), its parameters placed on the mesh.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \
         --steps 3 --batch 1 --seq 4096
@@ -13,9 +13,11 @@ Runs on the CUDA card by default; ``--device cpu`` runs the kernels' plain
 versions instead (with ``--reduced`` for a CPU-sized model). Weights are
 random, drawn from ``torch.Generator(device).manual_seed(0)``; batches come
 from the numpy ``SyntheticLMData`` (seed 0). The run is under
-``sharding_context(make_host_mesh(), DEFAULT_RULES)``, as the reference's;
-``--production-mesh`` and ``--multi-pod`` raise until ``parallel/``'s
-implicit placement is ported (ROADMAP.md Queue 1 item 6b).
+``sharding_context(mesh, DEFAULT_RULES)``, as the reference's, on
+``make_host_mesh()`` or, with ``--production-mesh`` / ``--multi-pod``,
+``make_production_mesh`` (a ValueError names the 256 / 512 ranks it needs
+where the process group has fewer); the parameters are placed by
+``param_sharding`` (``parallel.sharding.place``: DTensors) before the loop.
 ``--arch whisper-base`` is refused with a ValueError: its loss reads audio
 frames, which the token data has not (``registry.check_decoder_only``).
 """
@@ -28,11 +30,13 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.data import SyntheticLMData
-from repro_torch.launch.mesh import make_host_mesh, mesh_shape
+from repro_torch.launch.mesh import (make_host_mesh, make_production_mesh,
+                                     mesh_shape)
 from repro_torch.models.registry import (GRID_ARCHS, check_decoder_only,
                                          get_config, model_fns,
                                          reduce_config)
-from repro_torch.parallel.sharding import DEFAULT_RULES, sharding_context
+from repro_torch.parallel.sharding import (DEFAULT_RULES, place,
+                                           sharding_context)
 from repro_torch.train import make_train_step, train
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.logging import get_logger
@@ -47,9 +51,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="smoke-scale config (CPU dev box)")
     ap.add_argument("--optimized", action="store_true")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="the production mesh (needs ROADMAP.md Queue 1 "
-                         "item 6b, not ported)")
-    ap.add_argument("--multi-pod", action="store_true")
+                    help="the 16x16 production mesh (256 ranks)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the 2x16x16 multi-pod mesh (512 ranks)")
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -64,13 +68,13 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    if args.production_mesh or args.multi_pod:
-        raise NotImplementedError(
-            "--production-mesh / --multi-pod need parallel/'s implicit "
-            "placement on DTensors (ROADMAP.md Queue 1 item 6b)")
-    device = resolve_device(args.device)
     own_group = not dist.is_initialized()
-    mesh = make_host_mesh(device=device)
+    if args.production_mesh or args.multi_pod:
+        mesh = make_production_mesh(multi_pod=args.multi_pod,
+                                    device=args.device)
+    else:
+        mesh = make_host_mesh(device=args.device)
+    device = resolve_device(args.device)
     log.info("mesh: %s", mesh_shape(mesh))
     try:
         with sharding_context(mesh, DEFAULT_RULES):
@@ -89,7 +93,8 @@ def _train(args, device) -> dict:
     check_decoder_only(cfg, "launch.train")   # SyntheticLMData has no frames
 
     fns = model_fns(cfg)
-    params = fns.init(torch.Generator(device=device).manual_seed(0))
+    params = place(fns.init(torch.Generator(device=device).manual_seed(0)),
+                   fns.specs)
     tc = TrainConfig(total_steps=args.steps,
                      warmup_steps=max(args.steps // 10, 1),
                      learning_rate=args.lr,

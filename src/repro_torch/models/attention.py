@@ -41,11 +41,13 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.numerics import LOG2_E, NEG_INF
 from repro_torch.core.softermax import attention_softmax
+from repro_torch.kernels.dtensor import HEADS, run_local
 from repro_torch.kernels.flash_attention import flash_attention_op
 from repro_torch.kernels.flash_decode import flash_decode_op
 from repro_torch.models.layers import (apply_rope, rmsnorm, rope,
                                        rope_cos_sin, round_to)
 from repro_torch.models.schema import ParamSpec
+from repro_torch.parallel.sharding import shard_act
 
 
 def attention_schema(cfg: ModelConfig):
@@ -135,6 +137,7 @@ def _project_qkv(params, x, cfg: ModelConfig, positions, x_kv=None,
 
 def _out_proj(params, o, cfg: ModelConfig):
     """o: (B, H, S, Dh) -> (B, S, d)."""
+    o = shard_act(o, ("batch", "act_heads", "seq", "head_dim"))
     wo = params["wo"].to(cfg.compute_dtype_)
     H, dh, d = wo.shape
     return o.transpose(1, 2).flatten(2) @ wo.reshape(H * dh, d)
@@ -173,7 +176,14 @@ def chunked_attention(
     scores at a time in the backward. Otherwise it keeps four fp32
     score-sized tensors of every chunk (the scores, their IntMax ceil, p
     and p's f32 copy): ~34 GB for one of deepseek-v2's 128-head MLA layers
-    at S 4096 in chunks of 512. The values are the same."""
+    at S 4096 in chunks of 512. The values are the same. DTensors run on
+    their local shards, batch and heads (``kernels/dtensor.py``)."""
+    return run_local(lambda *t: _chunked_local(
+        *t, causal, intmax, window, chunk, q_offset), (q, k, v),
+        (HEADS,) * 3, keep=HEADS[:2])
+
+
+def _chunked_local(q, k, v, causal, intmax, window, chunk, q_offset):
     B, Hq, Sq, D = q.shape
     _, Hkv, Sk, _ = k.shape
     Dv = v.shape[-1]
@@ -220,7 +230,13 @@ def _naive_attention(q, k, v, cfg: ModelConfig, *, causal: bool,
     Sk, D). Scores in fp32 (q and k upcast: the reference's
     ``preferred_element_type=f32``), masked with the finite NEG_INF, the
     softmax of ``cfg.softmax_impl`` over the keys, ``p`` cast to V's dtype
-    before A·V (exact for the fixed-point Q(1,7) grid)."""
+    before A·V (exact for the fixed-point Q(1,7) grid). DTensors run on
+    their local shards, batch and heads."""
+    return run_local(lambda *t: _naive_local(*t, cfg, causal, window),
+                     (q, k, v), (HEADS,) * 3, keep=HEADS[:2])
+
+
+def _naive_local(q, k, v, cfg: ModelConfig, causal: bool, window: int):
     B, Hq, Sq, D = q.shape
     _, Hkv, Sk, _ = k.shape
     qg = q.reshape(B, Hkv, Hq // Hkv, Sq, D).float()
@@ -260,6 +276,9 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     if x_kv is not None:
         causal = False
     q = q_scale(q, cfg)
+    q = shard_act(q, ("batch", "act_heads", "seq", "head_dim"))
+    k = shard_act(k, ("batch", "act_heads", "seq", "head_dim"))
+    v = shard_act(v, ("batch", "act_heads", "seq", "head_dim"))
     impl = cfg.attention_impl
     if cfg.softmax_impl == "softermax_fixed":
         impl = "naive"      # QAT mode materializes scores (finetuning only)

@@ -23,10 +23,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.dtensor import run_local
 from repro_torch.models.attention import (attention_apply, attention_decode,
                                          attention_schema)
 from repro_torch.models.layers import rmsnorm, rmsnorm_schema
 from repro_torch.models.schema import ParamSpec
+from repro_torch.parallel.sharding import shard_act
 
 
 def mamba_schema(cfg: ModelConfig):
@@ -83,6 +85,15 @@ def selective_scan(decay, dbu, h):
     return torch.stack(hs, 1), h
 
 
+_SCAN = ("batch", None, "mlp", None)    # (B, S, di, st)
+
+
+def _ssm(decay, dbu, h, C_):
+    """The scan and its read-out: (y (B, S, di) fp32, the final state)."""
+    hs, h = selective_scan(decay, dbu, h)
+    return (hs @ C_[..., None])[..., 0], h
+
+
 def mamba_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
                 ssm_state=None, conv_state=None, return_state=False):
     """x (B, S, d) → (B, S, d); with ``return_state`` also the final SSM
@@ -97,7 +108,7 @@ def mamba_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     u, z = uz[..., :di], uz[..., di:]
     u_conv, new_conv = _causal_conv(u, params["conv_w"].to(dt_),
                                     params["conv_b"].to(dt_), conv_state)
-    u_act = F.silu(u_conv)
+    u_act = shard_act(F.silu(u_conv), ("batch", "seq", "act_mlp"))
 
     bc = u_act @ params["w_bc"].to(dt_)
     B_, C_ = bc[..., :st].float(), bc[..., st:].float()
@@ -110,8 +121,13 @@ def mamba_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     dbu = (dt * u_act.float())[..., None] * B_[:, :, None, :]
     h = (torch.zeros((B, di, st), dtype=torch.float32, device=x.device)
          if ssm_state is None else ssm_state)
-    hs, h = selective_scan(decay, dbu, h)
-    y = (hs @ C_[..., None])[..., 0].to(dt_)                    # (B,S,di)
+    # the recurrence on local shards (batch, channels), the time axis whole
+    # (``kernels/dtensor.py``)
+    y, h = run_local(_ssm, (decay, dbu, h, C_), (_SCAN,) * 2 + (
+        ("batch", "mlp", None), ("batch", None, None)),
+        keep=("batch", "mlp"),
+        out_axes=(("batch", None, "mlp"), ("batch", "mlp", None)))
+    y = y.to(dt_)                                               # (B,S,di)
     y = y + u_act * params["d_skip"].to(dt_)
     y = y * F.silu(z)
     out = y @ params["out_proj"].to(dt_)

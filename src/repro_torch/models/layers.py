@@ -14,6 +14,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.schema import ParamSpec
+from repro_torch.kernels.dtensor import dims, run_local
+from repro_torch.parallel.sharding import shard_act
 
 
 def rmsnorm_schema(dim: int, logical: str = "embed"):
@@ -74,6 +76,10 @@ def mlp(params, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
     h = _activate(x @ params["wi"].to(dt), activation)
     if "wg" in params:
         h = h * (x @ params["wg"].to(dt))
+    # rank 3 = (batch, seq, ff): keep the seq shard under seq-parallel rules
+    logical = (("batch", "seq", "act_mlp") if h.dim() == 3 else
+               ("batch",) + (None,) * (h.dim() - 2) + ("act_mlp",))
+    h = shard_act(h, logical)
     return h @ params["wo"].to(dt)
 
 
@@ -87,7 +93,14 @@ def embedding_schema(cfg: ModelConfig):
 
 
 def embed(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return params["embedding"].to(cfg.compute_dtype_)[tokens]
+    """The token rows of the table in the compute dtype. A placed table
+    gathers on the whole replicated arrays, as a custom call: DTensor's
+    gather and its backward (``index_put``) do not shard reliably."""
+    table = params["embedding"].to(cfg.compute_dtype_)
+    tok = dims(tokens, 0)
+    x = run_local(lambda i, t: t[i], (tokens, table), (tok, (None, None)),
+                  keep=tok, out_axes=(tok + (None,),))
+    return shard_act(x, ("batch", "seq", "act_embed"))
 
 
 def logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -96,7 +109,7 @@ def logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         w = params["embedding"].to(cfg.compute_dtype_).t()
     else:
         w = params["unembed"].to(cfg.compute_dtype_)
-    return (x @ w).float()
+    return shard_act((x @ w).float(), ("batch", "seq", "vocab"))
 
 
 @functools.lru_cache(maxsize=64)
@@ -159,7 +172,20 @@ def cross_entropy_loss(lg: torch.Tensor, labels: torch.Tensor,
                        z_loss: float = 0.0, vocab_size=None) -> torch.Tensor:
     """Token-mean cross entropy with optional z-loss; ignores labels < 0.
     Padded vocab entries (ids >= ``vocab_size``) are masked to -1e9 before
-    the log-sum-exp."""
+    the log-sum-exp. Placed logits take each token's terms on local
+    shards with every vocab row whole (a custom call: DTensor cannot pick
+    a label out of a vocab shard); the mean is over the whole batch."""
+    tok = dims(labels, 0)
+    nll, valid = run_local(
+        lambda a, b: _token_nll(a, b, z_loss, vocab_size), (lg, labels),
+        (dims(lg), tok), keep=tok, out_axes=(tok, tok))
+    denom = torch.clamp(valid.sum(), min=1)
+    return nll.sum() / denom
+
+
+def _token_nll(lg, labels, z_loss, vocab_size):
+    """(each token's cross entropy (+ z-loss), 0 where its label is < 0;
+    where it is not)."""
     if vocab_size is not None and vocab_size < lg.shape[-1]:
         mask = torch.arange(lg.shape[-1], device=lg.device) < vocab_size
         lg = torch.where(mask, lg, torch.full((), -1e9, dtype=lg.dtype,
@@ -171,6 +197,4 @@ def cross_entropy_loss(lg: torch.Tensor, labels: torch.Tensor,
     nll = lse - ll
     if z_loss:
         nll = nll + z_loss * lse ** 2
-    nll = torch.where(valid, nll, torch.zeros_like(nll))
-    denom = torch.clamp(valid.sum(), min=1)
-    return nll.sum() / denom
+    return torch.where(valid, nll, torch.zeros_like(nll)), valid

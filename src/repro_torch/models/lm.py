@@ -59,6 +59,7 @@ from repro_torch.models.layers import (cross_entropy_loss, embed,
                                        rope_cos_sin)
 from repro_torch.models.schema import (STACKS, layer_params, n_stacked,
                                        stack_schema, tree_map)
+from repro_torch.parallel.sharding import shard_act
 
 # Leaves the reference reads in fp32 whatever the compute dtype
 # (``.astype(jnp.float32)`` at use): rwkv's bonus ``u`` and head-norm scale,
@@ -205,6 +206,7 @@ def _scan_blocks(blocks, x, cfg: ModelConfig, positions, dense_ffn=False):
                               dense_ffn, use_reentrant=False)
         else:
             x, a = _block_apply(bp, x, cfg, positions, dense_ffn)
+        x = shard_act(x, ("batch", "seq", "act_embed"))
         if a is not None:
             aux = aux + a
     return x, aux
@@ -420,6 +422,7 @@ def lm_decode_step(params, tokens1: torch.Tensor, cache, cfg: ModelConfig):
     # table, so that a vocab-sharded table is read in place; one-hot @ table
     # returns the table rows exactly, so the gather gives the same numbers
     x1 = params["embed"]["embedding"].to(cfg.compute_dtype_)[tokens1]
+    x1 = shard_act(x1, ("batch", "act_embed"))
     # the GQA RoPE rotation at the step's positions, shared by the layers
     # (MLA ropes its own qk_rope dims; rwkv has none)
     rope_cs = rope_cos_sin(cache_len[:, None, None], cfg.rope_theta,

@@ -29,6 +29,7 @@ from repro_torch.models.attention import (_mode, chunked_attention,
                                          proj_heads, round_to)
 from repro_torch.models.layers import rmsnorm, rmsnorm_schema, rope
 from repro_torch.models.schema import ParamSpec
+from repro_torch.parallel.sharding import shard_act
 
 
 def mla_schema(cfg: ModelConfig):
@@ -104,6 +105,7 @@ def mla_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
         q_full = torch.cat([q_abs, q_rope], dim=-1)
         q_full = q_full * round_to(scale, q_full.dtype)
         k_full = torch.cat([c_kv, k_rope], dim=-1)[:, None]
+        q_full = shard_act(q_full, ("batch", "act_heads", "seq", None))
         o_lat = chunked_attention(q_full, k_full, c_kv[:, None],
                                   causal=cfg.causal, intmax=intmax,
                                   window=window, chunk=cfg.attention_chunk)
@@ -115,6 +117,9 @@ def mla_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
         k = torch.cat([k_nope, k_rope[:, None].expand(B, H, S, a.qk_rope)],
                       dim=-1)
         q = q * round_to(scale, q.dtype)
+        q = shard_act(q, ("batch", "act_heads", "seq", "head_dim"))
+        k = shard_act(k, ("batch", "act_heads", "seq", "head_dim"))
+        v = shard_act(v, ("batch", "act_heads", "seq", "head_dim"))
         o = chunked_attention(q, k, v, causal=cfg.causal, intmax=intmax,
                               window=window, chunk=cfg.attention_chunk)
     wo = params["wo"].to(dt)

@@ -43,9 +43,11 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.softermax import attention_softmax
+from repro_torch.kernels.dtensor import run_local
 from repro_torch.launch.mesh import mesh_shape
 from repro_torch.models.layers import _activate, mlp, mlp_schema
 from repro_torch.models.schema import ParamSpec
+from repro_torch.parallel.sharding import shard_act
 
 
 def moe_schema(cfg: ModelConfig):
@@ -101,7 +103,11 @@ def route(router: torch.Tensor, xf: torch.Tensor, cfg: ModelConfig,
     T = xf.shape[0]
     rl = (xf @ router.to(xf.dtype)).float()                    # (T, E)
     probs = attention_softmax(rl, impl=m.router_softmax, axis=-1)
-    weights, sel, keep, slot = _select(probs, k, E, C)
+    # integer ranks over every token (no DTensor strategy for
+    # searchsorted): on the whole replicated array, as a custom call
+    weights, sel, keep, slot = run_local(
+        lambda p: _select(p, k, E, C), (probs,), ((None, None),),
+        out_axes=((None, None),) * 2 + ((None,),) * 2)
     return Routing(rl, probs, weights, sel, keep, slot)
 
 
@@ -169,13 +175,31 @@ def _moe_apply_global(params, x: torch.Tensor, cfg: ModelConfig
     r = route(params["router"], xf, cfg, C)
 
     aux = _aux_loss(r.probs, r.rl, r.sel, E, k, m.aux_loss_weight)
-    h = _dispatch(xf, r.keep, r.slot, k, E, C)
-    y_buf = _experts(h, params["wi"].to(dt), params["wg"].to(dt),
-                     params["wo"].to(dt), cfg.activation)
-    y = _combine(y_buf, r.keep, r.slot, r.weights, E, C)
+    ws = tuple(params[w].to(dt) for w in ("wi", "wg", "wo"))
+    y = _experts_of(xf, r, ws, cfg, C)
     if m.n_shared > 0:
         y = y + mlp(params["shared"], xf, cfg.activation)
     return y.reshape(B, S, d), aux
+
+
+def _experts_of(xf, r: Routing, ws, cfg: ModelConfig, C: int):
+    """Dispatch, expert products and combine; placed, each a custom call
+    on local shards (``kernels/dtensor.py``): the dispatch and the
+    combine index every token's slots, so they run on the whole
+    replicated arrays; the products keep the experts sharded, each
+    product's contraction whole."""
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    one, two, three = (None,), (None, None), (None, None, None)
+    h = run_local(lambda *t: _dispatch(*t, k, E, C), (xf, r.keep, r.slot),
+                  (two, one, one), out_axes=(three,))
+    h = shard_act(h, ("experts", None, "act_embed"))
+    e = ("experts", None, None)
+    y_buf = run_local(lambda *t: _experts(*t, cfg.activation), (h, *ws),
+                      (e,) * 4, keep=e[:1])
+    y_buf = shard_act(y_buf, ("experts", None, "act_embed"))
+    return run_local(lambda *t: _combine(*t, E, C),
+                     (y_buf, r.keep, r.slot, r.weights),
+                     (three, one, one, two), out_axes=(two,))
 
 
 def _dispatch(xf, keep, slot, k: int, E: int, C: int):

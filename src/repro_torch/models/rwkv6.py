@@ -22,8 +22,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.dtensor import run_local
 from repro_torch.models.attention import proj_heads
 from repro_torch.models.schema import ParamSpec
+from repro_torch.parallel.sharding import shard_act
 
 _MIX = 5  # r, k, v, w, g
 
@@ -124,7 +126,15 @@ def rwkv_time_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     H = d // n
     dt = x.dtype
 
-    zr, zk, zv, zw, zg = _ddlerp(params, x, _shifted(x, shift_state))
+    xx = _shifted(x, shift_state)
+    # the mix's einsums on local batch shards (``kernels/dtensor.py``)
+    mix = ("mu", "mix_a", "mix_b")
+    act = ("batch", None, None)
+    zr, zk, zv, zw, zg = run_local(
+        lambda x_, xx_, *p: _ddlerp(dict(zip(mix, p)), x_, xx_),
+        (x, xx, *(params[m] for m in mix)),
+        (act, act, (None,) * 2, (None,) * 3, (None,) * 3),
+        keep=("batch",), out_axes=((None,) + act,))
     r = proj_heads(zr, params["wr"].to(dt))               # (B, S, H, n)
     k = proj_heads(zk, params["wk"].to(dt))
     v = proj_heads(zv, params["wv"].to(dt))
@@ -134,9 +144,16 @@ def rwkv_time_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     state0 = (torch.zeros((B, H, n, n), dtype=torch.float32,
                           device=x.device)
               if wkv_state is None else wkv_state)
-    y, state = _wkv_scan(r.float(), k.float(), v.float(), w,
-                         params["u"].float(), state0)
+    args = (r.float(), k.float(), v.float(), w, params["u"].float(),
+            state0)
+    # the recurrence on local shards (batch, heads), the time axis whole
+    # (``kernels/dtensor.py``)
+    seq = ("batch", None, "heads", None)
+    st = ("batch", "heads", None, None)
+    y, state = run_local(_wkv_scan, args, (seq,) * 4 + (
+        ("heads", None), st), keep=("batch", "heads"), out_axes=(seq, st))
     y = _head_norm(params, y.to(dt), cfg.norm_eps)
+    y = shard_act(y, ("batch", "seq", "act_heads", "head_dim"))
     out = (y.reshape(B, S, d) * g) @ params["wo"].to(dt)
     if return_state:
         return out, x[:, -1], state
@@ -160,6 +177,7 @@ def rwkv_channel_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     xk = x + xx * params["mu_k"].to(dt)
     xr = x + xx * params["mu_r"].to(dt)
     kk = torch.square(F.relu(xk @ params["wk"].to(dt)))
+    kk = shard_act(kk, ("batch", "seq", "act_mlp"))
     out = torch.sigmoid(xr @ params["wr"].to(dt)) * (kk @ params["wv"].to(dt))
     if return_state:
         return out, x[:, -1]

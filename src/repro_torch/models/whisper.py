@@ -42,6 +42,7 @@ from repro_torch.models.layers import (cross_entropy_loss, layernorm,
                                        sinusoidal_positions)
 from repro_torch.models.schema import (ParamSpec, layer_params, n_stacked,
                                        stack_schema)
+from repro_torch.parallel.sharding import shard_act
 
 
 def _enc_block_schema(cfg: ModelConfig):
@@ -102,6 +103,7 @@ def whisper_encode(params, frames: torch.Tensor,
     B, F, d = frames.shape
     x = frames.to(cfg.compute_dtype_)
     x = x + sinusoidal_positions(F, d, x.device).to(x.dtype)[None]
+    x = shard_act(x, ("batch", "seq", "act_embed"))
     positions = _positions(B, F, x.device)
     ecfg = cfg.replace(rope_theta=0.0)   # positions are additive, not rotary
 

@@ -11,6 +11,11 @@ fresh copy of the gradient tree for the clip, or a handful of fresh
 temporaries per leaf, would not fit beside them on one 80 GB card. The
 order of operations is the reference's; the schedule and the bias
 corrections are computed in fp32 on the host and enter as fp32 scalars.
+
+On placed parameters (DTensors) the state takes each parameter's
+placement (``zeros_like``), the clip's norm is the global one (the
+per-shard norms' squares summed across the mesh) and every update runs on
+the local shards.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import math
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.models.schema import tree_leaves, tree_map
@@ -61,7 +67,10 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 def _f32(x) -> float:
-    """A value rounded to fp32, as a Python float (an exact fp32 scalar)."""
+    """A value rounded to fp32, as a Python float (an exact fp32 scalar);
+    a DTensor is read as its global value."""
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
     return torch.as_tensor(x, dtype=torch.float32).item()
 
 

@@ -59,6 +59,7 @@ from repro_torch.models.layers import (apply_rope, embed, logits, rmsnorm,
                                        rope_cos_sin)
 from repro_torch.models.lm import ffn_apply
 from repro_torch.models.schema import layer_params
+from repro_torch.parallel.sharding import shard_act
 
 
 def check_paged_support(cfg: ModelConfig) -> None:
@@ -163,8 +164,12 @@ def paged_prefill(params, tokens: torch.Tensor, last_pos: torch.Tensor,
             q, k, v = attn_mod._project_qkv(bp["mixer"], h, cfg, positions)
             k = _fake_quant_kv(k)
             v = _fake_quant_kv(v)
-            o = attn_mod.chunked_attention(attn_mod.q_scale(q, cfg), k, v,
-                                           causal=True, intmax=intmax,
+            heads = ("batch", "act_heads", "seq", "head_dim")
+            q = shard_act(attn_mod.q_scale(q, cfg), heads)
+            k = shard_act(k, heads)
+            v = shard_act(v, heads)
+            o = attn_mod.chunked_attention(q, k, v, causal=True,
+                                           intmax=intmax,
                                            chunk=cfg.attention_chunk)
             y = attn_mod._out_proj(bp["mixer"], o, cfg)
         else:
@@ -172,7 +177,7 @@ def paged_prefill(params, tokens: torch.Tensor, last_pos: torch.Tensor,
                                                positions=positions,
                                                causal=True, return_kv=True)
         x = x + y
-        x = x + _ffn(bp, x, cfg)
+        x = shard_act(x + _ffn(bp, x, cfg), ("batch", "seq", "act_embed"))
         ks.append(k)
         vs.append(v)
     return _head(params, x, last_pos, cfg), torch.stack(ks), torch.stack(vs)
@@ -356,7 +361,7 @@ def paged_prefill_suffix(params, tokens, pos0: int, last_rel, k_pool, v_pool,
         o = _suffix_attention(q, k_pre, v_pre, k, v, pre_valid, positions,
                               intmax)
         x = x + attn_mod._out_proj(bp["mixer"], o, cfg)
-        x = x + _ffn(bp, x, cfg)
+        x = shard_act(x + _ffn(bp, x, cfg), ("batch", "seq", "act_embed"))
         ks.append(k)
         vs.append(v)
     return _head(params, x, last_rel, cfg), torch.stack(ks), torch.stack(vs)
@@ -427,7 +432,7 @@ def paged_prefill_chunked(params, tokens, pos0: int, last_rel, k_pool,
                              v_scale[layer] if quantized else None,
                              kv_tile_blocks)
         x = x + attn_mod._out_proj(bp["mixer"], o, cfg)
-        x = x + _ffn(bp, x, cfg)
+        x = shard_act(x + _ffn(bp, x, cfg), ("batch", "seq", "act_embed"))
     return _head(params, x, last_rel, cfg)
 
 
@@ -451,7 +456,8 @@ def paged_decode_step(params, tokens1, k_pool, v_pool, block_tables, lengths,
     dt = cfg.compute_dtype_
     _, intmax = attn_mod._mode(cfg)
     quantized = k_pool.dtype == torch.int8
-    x1 = params["embed"]["embedding"].to(dt)[tokens1]
+    x1 = shard_act(params["embed"]["embedding"].to(dt)[tokens1],
+                   ("batch", "act_embed"))
     rows = torch.arange(B, device=tokens1.device)
     blk = block_tables[rows, (lengths // BS).long()]    # (B,) physical block
     off = lengths % BS

@@ -3,7 +3,8 @@
 Responsibilities beyond calling the step:
 
 * **checkpoint/restart** — auto-resume from the latest checkpoint (params,
-  optimizer, data-iterator position, step counter); periodic async saves.
+  optimizer, data-iterator position, step counter), placed as the live
+  state is (``sharding_of``); periodic async saves.
 * **straggler monitor** — per-step wall time EWMA + variance; steps slower
   than ``mean + k·σ`` are flagged and logged.
 * **NaN guard** — a non-finite loss aborts with the last good checkpoint on
@@ -24,7 +25,9 @@ import numpy as np
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import TrainConfig
 from repro_torch.data import DataState, SyntheticLMData
+from repro_torch.models.schema import tree_map
 from repro_torch.optim import adamw
+from repro_torch.parallel.sharding import sharding_of
 from repro_torch.utils.logging import get_logger
 
 log = get_logger("repro_torch.train")
@@ -82,7 +85,10 @@ def train(
         restored = mgr.restore(step0, {
             "params": params, "opt": opt_state,
             "data": data.state.to_dict(),
-        })
+        }, shardings={"params": tree_map(sharding_of, params),
+                      "opt": adamw.AdamWState(
+                          m=tree_map(sharding_of, opt_state.m),
+                          v=tree_map(sharding_of, opt_state.v), step=None)})
         params, opt_state = restored["params"], restored["opt"]
         data.restore(DataState.from_dict(restored["data"]))
         start_step = restored["meta"]["step"]

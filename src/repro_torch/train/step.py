@@ -19,6 +19,12 @@ layer and leaf (28 x 2.8 GB for llama3.2-3b's FFN matrices).
   the count, as in the reference; the loss is their mean and the other
   metrics are the last slice's.
 * the loss comes from the model (``registry.model_fns(cfg).loss``).
+* placed parameters (DTensors, ``parallel.sharding.place``): the batch is
+  distributed by the ambient rules' ``("batch", "seq")`` spec, the
+  forward and backward run under ``placed_scope`` (plain constants taken
+  as replicated), and the metrics come back as plain tensors holding the
+  global values. The layer stacks are never sharded, so a layer's slice
+  is a view of each rank's shard. Plain parameters take none of this.
 
 ``make_ddp_train_step`` is the data-parallel step over a mesh's data axis:
 replicated parameters, each rank's slice of the batch, gradients
@@ -27,10 +33,12 @@ all-reduced as int8 with error feedback (``tc.grad_compression``,
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.models.lm import STACKS
@@ -39,6 +47,8 @@ from repro_torch.optim import adamw
 from repro_torch.parallel.collectives import (axis_group,
                                               compressed_psum_tree,
                                               pmean_tree)
+from repro_torch.parallel.sharding import (batch_sharding, distribute,
+                                           placed_scope)
 
 
 def _leaf(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -70,12 +80,31 @@ def _batch_to(batch, device) -> Dict[str, torch.Tensor]:
             for k, v in batch.items()}
 
 
+def _distributed(mb):
+    """A microbatch of placed parameters' step, distributed by
+    ``batch_sharding`` under the ambient mesh."""
+    out = {}
+    for k, v in mb.items():
+        sharding = batch_sharding(v.shape)
+        if sharding is None:
+            raise ValueError("placed parameters need the sharding_context "
+                             "they were placed under")
+        out[k] = distribute(v, sharding)
+    return out
+
+
+def _plain(x):
+    """A metric as a plain tensor: a DTensor's global value."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
 def make_loss_and_grad(loss_fn: Callable, tc: TrainConfig):
     def accumulate(params, batch):
         """(mean loss, last microbatch's metrics, gradients) over the whole
         batch; gradients in the parameters' layout and dtype."""
-        device = tree_leaves(params)[0].device
-        batch = _batch_to(batch, device)
+        first = tree_leaves(params)[0]
+        placed = isinstance(first, DTensor)
+        batch = _batch_to(batch, first.device)
         n = max(tc.microbatches, 1)
         B = next(iter(batch.values())).shape[0]
         if B % n:
@@ -84,17 +113,20 @@ def make_loss_and_grad(loss_fn: Callable, tc: TrainConfig):
         grads = tree_map(torch.zeros_like, params)
         leaves = _grad_leaves(params, grads)
         loss_sum, metrics = None, {}
-        for i in range(n):
-            mb = {k: v[i * (B // n):(i + 1) * (B // n)]
-                  for k, v in batch.items()}
-            loss, metrics = loss_fn(leaves, mb)
-            loss.backward()
-            loss = loss.detach()
-            loss_sum = loss if loss_sum is None else loss_sum + loss
-        if n > 1:
-            torch._foreach_div_(tree_leaves(grads), n)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return loss_sum / n, metrics, grads
+        with placed_scope() if placed else contextlib.nullcontext():
+            for i in range(n):
+                mb = {k: v[i * (B // n):(i + 1) * (B // n)]
+                      for k, v in batch.items()}
+                if placed:
+                    mb = _distributed(mb)
+                loss, metrics = loss_fn(leaves, mb)
+                loss.backward()
+                loss = loss.detach()
+                loss_sum = loss if loss_sum is None else loss_sum + loss
+            if n > 1:
+                torch._foreach_div_(tree_leaves(grads), n)
+        metrics = {k: _plain(v.detach()) for k, v in metrics.items()}
+        return _plain(loss_sum / n), metrics, grads
 
     return accumulate
 
@@ -107,6 +139,7 @@ def make_train_step(loss_fn: Callable, tc: TrainConfig):
         loss, metrics, grads = accumulate(params, batch)
         params, opt_state, info = adamw.apply_updates(
             params, grads, opt_state, tc)
+        info = {k: _plain(v) for k, v in info.items()}
         return params, opt_state, {"loss": loss, **metrics, **info}
 
     return train_step

@@ -865,5 +865,5 @@ def test_launcher_fleet_then_resume_lines(tmp_path, caplog, monkeypatch):
     assert int(tr.c_recovered.value) == 4
     assert _int(r"fleet\[2x qwen3-4b, affinity router\]: (\d+) completed",
                 text) == [int(tr.c_completed.value)] == [4]
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(ValueError, match="256 ranks"):
         launch_serve.main(["--production-mesh"])

@@ -165,8 +165,9 @@ def test_context_and_param_sharding():
     with tsh.sharding_context(sizes, tsh.SERVE_RULES):
         assert tsh.current_mesh() is sizes
         assert tsh.current_rules() is tsh.SERVE_RULES
-        assert tsh.param_sharding(("embed", "mlp"), (4096, 12800)) == \
-            (None, "model")
+        got = tsh.param_sharding(("embed", "mlp"), (4096, 12800))
+        assert got == tsh.NamedSharding(sizes, (None, "model"))
+        assert got.spec == (None, "model") and got.mesh is sizes
         assert tsh.shard_act(x, ("batch",)) is x
     assert tsh.current_mesh() is None
     assert tsh.current_rules() is tsh.DEFAULT_RULES

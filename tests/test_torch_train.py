@@ -238,7 +238,7 @@ def test_launcher_defaults_to_the_card_and_runs_on_cpu():
                              "--device", "cpu", "--steps", "2", "--batch",
                              "2", "--seq", "16"])
     assert len(out["history"]) == 2 and np.isfinite(out["history"]).all()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="256 ranks"):
         launch_train.main(["--production-mesh", "--device", "cpu"])
 
 
