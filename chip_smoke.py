@@ -405,6 +405,22 @@ Phases, in order; any failure raises and exits non-zero:
    rank placements are held on the CPU (``tests/test_torch_placement.py``:
    8 gloo ranks on a (4, 2) mesh against the reference's ``Auto`` mesh).
 
+37. (D) The dry run on the card machine's torch (``phase_dryrun``; no
+   kernel launches, nothing on the card): (a) ``launch.dryrun.lower_cell
+   ("llama3.2-3b", "train_4k")`` on a fake 256-rank 16 x 16 group, its
+   per-rank bytes, collectives and terms at ``H100_SXM`` printed (host
+   work in a process of its own, started before phase 29, ~50 s); (b)
+   phase 36's placed llama3.2-3b step recorded on a fake one-rank (1, 1)
+   group: its argument bytes EQUAL to the parameters, AdamW state and
+   batch phase 36 held on the card before its first step, its peak live
+   bytes within ``DRYRUN_PEAK_TOL`` of phase 36's ``max_memory_allocated``
+   (both count the same tensors; the card adds allocator rounding, cuBLAS
+   workspace and K3's saved statistics, which the dry run's one-call
+   kernels leave out), no collective; (c) the vocab-parallel loss and
+   embedding on two gloo CPU ranks (``python -c``, a FileStore in a temp
+   dir) within ``VOCAB_TOL`` of one rank, gradients placed as their
+   operands.
+
 Phase 4 also runs one engine with ``attention_impl="flash"``, whose one-shot
 prefill goes through K3.
 
@@ -414,6 +430,7 @@ result.
 """
 from __future__ import annotations
 
+import atexit
 import gc
 import json
 import math
@@ -3022,7 +3039,8 @@ FLEET_LAYERS = 4         # phase 29 (a)-(b): llama3.2-3b's first 4 of 28
 #                          (8 until the smoke took 1,298 s on a slow host)
 RESILIENCE_LAYERS = 8    # phase 28: llama3.2-3b's first 8 of 28 layers,
 #                          for the same reason
-OVERHEAD_ROUNDS = 9      # phase 27 (c): on/off rounds of the overhead check
+OVERHEAD_ROUNDS = 5      # phase 27 (c): on/off rounds of the overhead check,
+#                          the bench's default (9 until phase 37 joined)
 
 
 def _prompt_logits(eng):
@@ -7432,8 +7450,15 @@ def _placement_steps(cfg, dev, mesh, placed):
         emb = getattr(params["embed"]["embedding"], "placements", None)
         opt = adamw.init_state(params)
         step = make_train_step(fns.loss, tc)
+        held = None
         for _ in range(PLACEMENT_STEPS):
             batch = next(data)
+            if held is None:     # what the first step takes, on the card
+                held = sum(
+                    (t.to_local() if hasattr(t, "to_local") else t).nbytes
+                    for t in tree_leaves(params) + tree_leaves(opt.m)
+                    + tree_leaves(opt.v) + [opt.step]) + sum(
+                    a.nbytes for a in batch.values())
             c0 = _flash_counts() + _flash_tc_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -7446,7 +7471,7 @@ def _placement_steps(cfg, dev, mesh, placed):
     peak = torch.cuda.max_memory_allocated()
     del params, opt, step, m
     _free()
-    return rows, peak, kinds, emb
+    return rows, peak, kinds, emb, held
 
 
 def _placement_k3(tag, mesh, dev, card):
@@ -7532,7 +7557,7 @@ def phase_placement(dev, card):
     for placed in (False, True):
         _reset_counts()
         runs[placed] = _placement_steps(cfg, dev, mesh, placed)
-    (plain, peak0, kinds0, _), (rows, peak1, kinds1, emb) = \
+    (plain, peak0, kinds0, _, _), (rows, peak1, kinds1, emb, held) = \
         runs[False], runs[True]
     check(kinds0 == ["Tensor"] and kinds1 == ["DTensor"],
           f"{tag} parameter types: plain {kinds0}, placed {kinds1}")
@@ -7561,10 +7586,296 @@ def phase_placement(dev, card):
     steps = {"plain_step_s": [r[2] for r in plain],
              "placed_step_s": [r[2] for r in rows],
              "peak_gib": [peak0 / 2 ** 30, peak1 / 2 ** 30]}
-    return {"flash_attention": {"launches": sum(r[3][0] for r in rows),
+    path = {"flash_attention": {"launches": sum(r[3][0] for r in rows),
                                 **steps, "dtensor_k3": k3},
             "flash_attention_bwd": {"launches": sum(r[3][1] for r in rows),
                                     **steps}}
+    return path, {"cfg": cfg, "held_bytes": held, "peak_bytes": peak1}
+
+
+# ---------------------------------------------------------------------------
+# Phase 37: the dry run on the card machine
+# ---------------------------------------------------------------------------
+
+DRYRUN_PEAK_TOL = 0.05   # phase 37 (b): dry-run peak vs the card's, rel.
+VOCAB_TOL = 1e-5         # phase 37 (c): two ranks vs one, relative
+
+# (a) in a process of its own, beside (b) and (c)
+_DRYRUN_CELL = """
+import json, sys, time
+sys.path[:0] = [{src!r}]
+from repro_torch.launch import dryrun
+from repro_torch.launch.roofline import H100_SXM
+t0 = time.perf_counter()
+_, rep = dryrun.lower_cell("llama3.2-3b", "train_4k", chip=H100_SXM)
+rep["wall_s"] = time.perf_counter() - t0
+with open({out!r}, "w") as f:
+    json.dump(rep, f)
+"""
+
+_VOCAB_RANK = """
+import sys
+sys.path[:0] = [{root!r}, {src!r}]
+import chip_smoke
+chip_smoke._vocab_rank({rank}, {store!r}, {out!r})
+"""
+
+
+def _vocab_rank(rank, store, out_path):
+    """(c) one of two gloo CPU ranks on a (1, 2) ``("data", "model")``
+    mesh: the vocab-parallel loss (z-loss, padded vocab, ignored labels)
+    and embedding on vocab-sharded DTensors, and their gradients, against
+    the same functions on the whole plain tensors."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.models.layers import cross_entropy_loss, embed_rows
+    from repro_torch.parallel.sharding import placed_scope
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=120))
+    mesh = init_device_mesh("cpu", (1, 2), mesh_dim_names=("data", "model"))
+    g = torch.Generator().manual_seed(37)
+    B, S, V, d, vocab = 4, 64, 512, 48, 500
+    lg = torch.randn(B, S, V, generator=g) * 3
+    labels = torch.randint(-1, vocab, (B, S), generator=g)
+    table = torch.randn(V, d, generator=g)
+    tokens = torch.randint(0, vocab, (B, S), generator=g)
+    w = torch.randn(B, S, d, generator=g)
+
+    def run(lg, table):
+        loss = cross_entropy_loss(lg, labels, z_loss=1e-4, vocab_size=vocab)
+        rows = embed_rows(table, tokens)
+        total = loss + (rows * w).sum()
+        total.backward()
+        return loss, rows
+
+    want = [t.clone().requires_grad_() for t in (lg, table)]
+    w_loss, w_rows = run(*want)
+    got = [distribute_tensor(t, mesh, [Replicate(), Shard(dim)])
+           .requires_grad_() for t, dim in ((lg, 2), (table, 0))]
+    with placed_scope():
+        g_loss, g_rows = run(*got)
+    full = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    def rel(a, b):
+        return float((full(a) - b).norm() / b.norm())
+    res = {"placements": [repr(tuple(t.placements)) for t in got],
+           "grad_placements": [repr(tuple(t.grad.placements))
+                               for t in got],
+           "loss": float(full(g_loss)), "one_loss": float(w_loss),
+           "rows_equal": bool(torch.equal(full(g_rows), w_rows)),
+           "dlogits_rel": rel(got[0].grad, want[0].grad),
+           "dtable_rel": rel(got[1].grad, want[1].grad),
+           "torch": torch.__version__}
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _start_vocab_ranks(tmp):
+    """(c) the two gloo CPU ranks, started here: (processes, out files)."""
+    procs, outs = [], []
+    for r in range(2):
+        outs.append(f"{tmp}/rank{r}.json")
+        code = _VOCAB_RANK.format(root=str(ROOT), src=str(ROOT / "src"),
+                                  rank=r, store=f"{tmp}/store", out=outs[-1])
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", code], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    return procs, outs
+
+
+def _vocab_ranks_reading(tag, card, procs, outs):
+    """(c) the two ranks' results, each held to one rank's."""
+    logs = []
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=120)[0])
+        except subprocess.TimeoutExpired:
+            p.kill()
+            logs.append(p.communicate()[0] + "\n(timed out)")
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0,
+              f"{tag} (c) rank {r} exited {p.returncode}:\n{log[-3000:]}")
+    res = []
+    for o in outs:
+        with open(o) as f:
+            res.append(json.load(f))
+    rel = [abs(r["loss"] - r["one_loss"]) / abs(r["one_loss"]) for r in res]
+    for r, rl in zip(res, rel):
+        check(rl <= VOCAB_TOL and r["dlogits_rel"] <= VOCAB_TOL and
+              r["dtable_rel"] <= VOCAB_TOL and r["rows_equal"] and
+              r["grad_placements"] == r["placements"],
+              f"{tag} (c) vocab-parallel loss/embedding on two ranks: {r}")
+    r = res[0]
+    print(f"{tag} (c) two gloo CPU ranks (torch {r['torch']}), logits "
+          f"{r['placements'][0]} and table {r['placements'][1]} "
+          f"vocab-sharded: loss {r['loss']:.7f} vs one rank "
+          f"{r['one_loss']:.7f} (rel {max(rel):.3g}), gathered rows EQUAL, "
+          f"gradients rel L2 <= {max(x['dlogits_rel'] for x in res):.3g} "
+          f"(logits), {max(x['dtable_rel'] for x in res):.3g} (table), gate "
+          f"{VOCAB_TOL}, each placed as its operand, on both ranks; {card}")
+
+
+def start_dryrun_cell():
+    """Phase 37 (a), started early (``main`` starts it before phase 29,
+    whose bench CLIs gate nothing on time): the dry run of llama3.2-3b at
+    ``train_4k`` in a process of its own, pure host work on one core.
+    Returns (its process, its log, its temp dir)."""
+    import tempfile
+    tmp = tempfile.TemporaryDirectory()
+    log = open(f"{tmp.name}/cell.log", "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _DRYRUN_CELL.format(
+            src=str(ROOT / "src"), out=f"{tmp.name}/cell.json")],
+        stdout=log, stderr=subprocess.STDOUT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, log, tmp
+
+
+def phase_dryrun(step, card, started=None):
+    """37. (D) The dry run on the card machine's torch. (a) llama3.2-3b at
+    ``train_4k`` on a fake 256-rank 16 x 16 group (``start_dryrun_cell``,
+    or started here); (b) phase 36's one-rank step recorded on a fake
+    one-rank (1, 1) group, held to what the card held and peaked at; (c)
+    the vocab-parallel loss and embedding on two gloo CPU ranks."""
+    import torch.distributed as dist
+    tag = "[37]"
+    t_phase = time.perf_counter()
+    check(not dist.is_initialized(), f"{tag} a process group is left over")
+    # (a) and (c) run in processes of their own, beside (b)
+    cell, cell_log, tmp = started or start_dryrun_cell()
+    ranks = _start_vocab_ranks(tmp.name)
+    try:
+        _dryrun_one_rank(tag, step, card)
+        try:
+            cell.wait(timeout=300)
+        except subprocess.TimeoutExpired:
+            cell.kill()
+        cell_log.seek(0)
+        check(cell.returncode == 0, f"{tag} (a) exited {cell.returncode}:"
+                                    f"\n{cell_log.read()[-3000:]}")
+        with open(f"{tmp.name}/cell.json") as f:
+            rep = json.load(f)
+        _vocab_ranks_reading(tag, card, *ranks)
+    finally:
+        for p in [cell, *ranks[0]]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        cell_log.close()
+        tmp.cleanup()
+    rf, ma = rep["roofline"], rep["memory_analysis"]
+    check(rep["chips"] == 256 and rf["compute_s"] > 0 and
+          rf["memory_s"] > 0 and rf["collective_s"] > 0,
+          f"{tag} (a) report {rep}")
+    print(f"{tag} (a) llama3.2-3b train_4k on a fake 256-rank 16 x 16 group "
+          f"({rep['rules']}), per rank: arguments "
+          f"{ma['argument_size_in_bytes'] / 2 ** 30:.3f} GiB, peak live "
+          f"{ma['peak_live_bytes'] / 2 ** 30:.3f} GiB, bytes accessed "
+          f"{rep['cost_analysis']['bytes accessed']:.4g}, collectives "
+          + ", ".join(f"{k} {v:.4g} B" for k, v in
+                      rf["collective_breakdown"].items() if v) +
+          f"; at the {H100_SXM.name} rates: compute {rf['compute_s']:.4g} s, "
+          f"memory {rf['memory_s']:.4g} s, collective "
+          f"{rf['collective_s']:.4g} s, dominant {rf['dominant']}, roofline "
+          f"fraction {rf['roofline_fraction']:.4g}; recorded in "
+          f"{rep['wall_s']:.1f} s (placement {rep['lower_s']} s, step "
+          f"{rep['compile_s']} s) in a process of its own; {card}")
+    print(f"{tag} phase time {time.perf_counter() - t_phase:.1f} s; {card}")
+
+
+def _dryrun_one_rank(tag, step, card):
+    """(b) phase 36's step on a fake one-rank (1, 1) group."""
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_process_group, make_host_mesh
+    from repro_torch.parallel.sharding import DEFAULT_RULES
+    cfg = step["cfg"]
+    shape = ShapeConfig("train_b1", "train", 4096, 1)
+    tc = TrainConfig(total_steps=3, warmup_steps=1, learning_rate=3e-4)
+    t0 = time.perf_counter()
+    with fake_process_group(1):
+        mesh = make_host_mesh(device="cpu")
+        rec, _, _ = dryrun.record_step(cfg, shape, mesh, DEFAULT_RULES, tc)
+    wall = time.perf_counter() - t0
+    n_coll = sum(rec.collective_counts.values())
+    rel = rec.peak_live_bytes / step["peak_bytes"] - 1
+    check(rec.argument_bytes == step["held_bytes"],
+          f"{tag} (b) dry-run argument bytes {rec.argument_bytes} vs "
+          f"{step['held_bytes']} held on the card before the step")
+    check(n_coll == 0 and not any(rec.collective_bytes.values()),
+          f"{tag} (b) collectives on one rank: {rec.collective_counts}")
+    check(abs(rel) <= DRYRUN_PEAK_TOL,
+          f"{tag} (b) dry-run peak live {rec.peak_live_bytes} vs the card's "
+          f"peak {step['peak_bytes']} (rel {rel:+.4f}, tolerance "
+          f"{DRYRUN_PEAK_TOL})")
+    print(f"{tag} (b) phase 36's placed llama3.2-3b step (B 1 x 4096, "
+          f"flash) recorded on a fake one-rank (1, 1) group in {wall:.1f} s:"
+          f" arguments {rec.argument_bytes} B EQUAL to the "
+          f"{step['held_bytes']} B of parameters, AdamW state and batch the "
+          f"card held; peak live "
+          f"{rec.peak_live_bytes / 2 ** 30:.3f} GiB vs the card's max "
+          f"allocated {step['peak_bytes'] / 2 ** 30:.3f} GiB (rel "
+          f"{rel:+.4f}, tolerance {DRYRUN_PEAK_TOL}); no collective; kernel "
+          f"calls {dict(rec.kernel_calls)}; {card}")
+
+
+def step_memory_terms():
+    """The dry run's record of each step of phase 35's MFU table, its
+    config cut as its phase runs it, on a fake one-rank (1, 1) group:
+    bytes accessed, the memory term at ``H100_SXM``'s HBM rate, peak live
+    bytes, collectives. Pure host work (no card needed, no kernel
+    launched); ``main`` does not call it, ``PERF.md`` §5 reads it."""
+    import dataclasses
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_process_group, make_host_mesh
+    from repro_torch.models.registry import get_config
+    from repro_torch.parallel.sharding import DEFAULT_RULES
+    ds = get_config("deepseek-v2-236b")
+    ds = ds.replace(n_layers=ds.moe.first_dense + DEEPSEEK_TRAIN_MOE_LAYERS,
+                    moe=dataclasses.replace(
+                        ds.moe, n_experts=DEEPSEEK_TRAIN_EXPERTS))
+    llama = get_config("llama3.2-3b")
+    steps = {
+        "llama3.2-3b train": (llama.replace(attention_impl="flash"),
+                              "train", 1, 4096),
+        "llama3.2-3b decode (static, 447 cached)": (llama, "decode", 8, 447),
+        "deepseek-v2-236b expanded train": (ds, "train", 1, 4096),
+        "deepseek-v2-236b absorbed train": (
+            ds.replace(opt_mla_absorbed=True), "train", 1, 4096),
+        "hymba-1.5b train": (get_config("hymba-1.5b").replace(
+            attention_impl="flash"), "train", HYMBA_TRAIN_ROWS,
+            HYMBA_TRAIN_SEQ),
+        "rwkv6-7b train": (get_config("rwkv6-7b").replace(
+            n_layers=RWKV_TRAIN_LAYERS), "train", RWKV_TRAIN_ROWS,
+            RWKV_TRAIN_SEQ),
+        "whisper-base train": (get_config("whisper-base").replace(
+            attention_impl="flash"), "train", 8, WHISPER_SLOTS)}
+    for name, (cfg, kind, B, S) in steps.items():
+        t0 = time.perf_counter()
+        try:
+            with fake_process_group(1):
+                rec, _, _ = dryrun.record_step(
+                    cfg, ShapeConfig(name, kind, S, B),
+                    make_host_mesh(device="cpu"), DEFAULT_RULES)
+        except Exception as e:          # a DTensor rule of this torch
+            print(f"[terms] {name}, B {B} x S {S}: not recorded: "
+                  f"{type(e).__name__}: {str(e).splitlines()[0][:200]}")
+            continue
+        print(f"[terms] {name}, B {B} x S {S}: bytes accessed "
+              f"{rec.bytes_accessed:.4g}, memory term "
+              f"{rec.bytes_accessed / H100_SXM.hbm_bw * 1e3:.2f} ms at "
+              f"{H100_SXM.hbm_bw / 1e12:.2f} TB/s, peak live "
+              f"{rec.peak_live_bytes / 2 ** 30:.2f} GiB, collectives "
+              f"{sum(rec.collective_counts.values())}, kernel calls "
+              f"{dict(rec.kernel_calls)}; recorded in "
+              f"{time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -7640,6 +7951,7 @@ def main() -> int:
     phase_paper_tables(dev, card)
     phase_telemetry(dev, card)
     phase_resilience(dev, card)
+    dryrun_cell = start_dryrun_cell()          # phase 37 (a), on the host
     phase_fleet(dev, card)
     moe_path = phase_moe(dev, card)
     family_path = phase_families(dev, card)
@@ -7648,7 +7960,8 @@ def main() -> int:
     family_train_path, family_steps = phase_family_train(dev, card)
     phase_analytic([train_step, decode_step, *family_steps, whisper_step],
                    card)
-    placement_path = phase_placement(dev, card)
+    placement_path, placement_step = phase_placement(dev, card)
+    phase_dryrun(placement_step, card, dryrun_cell)
     for k in kernels:
         k["card"] = card
         if k["name"] in moe_path:

@@ -4,9 +4,10 @@ or the folder ``DRYRUN_ART`` names), in the JAX package's format.
 The counterpart of the reference's ``benchmarks/roofline_report.py``: one
 row per (arch × shape × mesh) with the three terms (seconds), the dominant
 one, MODEL_FLOPS over the analytic FLOPs and the roofline fraction. An
-artifact written before the analytic count existed is upgraded through the
-port's ``analytic_flops`` and ``Roofline`` (the TPU entry its terms were
-taken for). Run ``python -m repro_torch.benchmarks.roofline_report``; with
+artifact's terms are rebuilt through the port's ``Roofline`` at the rates
+of the chip it names (``chip``: the port's dry run writes ``H100 SXM``; a
+reference artifact has none and is read at the TPU entry), with the
+port's ``analytic_flops`` where it predates the analytic count. Run ``python -m repro_torch.benchmarks.roofline_report``; with
 no artifacts it prints nothing.
 """
 from __future__ import annotations
@@ -17,20 +18,25 @@ import os
 
 from repro_torch.configs.base import ALL_SHAPES
 from repro_torch.launch.analytic import analytic_flops
-from repro_torch.launch.roofline import Roofline
+from repro_torch.launch.roofline import H100_SXM, TPU_V5E, Roofline
 from repro_torch.models.registry import get_config
 
 ART = os.environ.get("DRYRUN_ART", "artifacts/dryrun")
+CHIPS = {c.name: c for c in (TPU_V5E, H100_SXM)}
 
 
 def _upgrade(r):
-    """Recompute roofline terms with analytic FLOPs for artifacts written
-    before the analytic count existed (no recompile needed)."""
-    if r.get("skipped") or r["roofline"].get("analytic_flops"):
+    """The roofline terms at the rates of the artifact's ``chip`` (the TPU
+    entry where it names none, as the reference's artifacts), with
+    analytic FLOPs, computed for artifacts written before the analytic
+    count existed (no recompile needed)."""
+    if r.get("skipped"):
         return r
-    shape = {s.name: s for s in ALL_SHAPES}[r["shape"]]
-    cfg = get_config(r["arch"])
     rf = r["roofline"]
+    af = rf.get("analytic_flops")
+    if not af:
+        shape = {s.name: s for s in ALL_SHAPES}[r["shape"]]
+        af = analytic_flops(get_config(r["arch"]), shape)
     roof = Roofline(
         flops_per_chip=rf["flops_per_chip"],
         bytes_per_chip=rf["bytes_per_chip"],
@@ -38,7 +44,8 @@ def _upgrade(r):
         chips=rf["chips"],
         model_flops=rf["model_flops"],
         collective_breakdown=rf["collective_breakdown"],
-        analytic_flops=analytic_flops(cfg, shape),
+        analytic_flops=af,
+        chip=CHIPS[r.get("chip", TPU_V5E.name)],
     )
     r["roofline"] = roof.to_dict()
     return r

@@ -40,6 +40,7 @@ import torch
 from repro_torch.core.numerics import LOG2_E
 from repro_torch.kernels import build
 from repro_torch.kernels.dtensor import HEADS, run_local
+from repro_torch.kernels.observe import call_plain
 from repro_torch.kernels.dtypes import q_code
 from repro_torch.kernels.flash_attention.plain import (
     flash_attention_bwd_plain, flash_attention_plain)
@@ -232,13 +233,20 @@ flash_attention_bwd.launches = 0
 flash_attention_bwd.launches_tc = 0
 
 
+def _stats_like(q, k, v):
+    """Empty (o, m, d) of the forward's shapes and dtypes."""
+    stat = q.new_empty(q.shape[:-1] + (1,), dtype=torch.float32)
+    return q.new_empty(q.shape[:-1] + v.shape[-1:]), stat, stat.clone()
+
+
 def _forward(q, k, v, causal, intmax, block_k):
     if q.is_cuda:
         return flash_attention(q, k, v, causal=causal, intmax=intmax,
                                return_stats=True)
     _check("flash_attention_plain", causal, q, k, v)
-    return flash_attention_plain(q, k, v, causal=causal, intmax=intmax,
-                                 block_k=block_k, return_stats=True)
+    return call_plain("flash_attention", lambda *t: flash_attention_plain(
+        *t, causal=causal, intmax=intmax, block_k=block_k,
+        return_stats=True), q, k, v, like=_stats_like)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -257,8 +265,11 @@ class _FlashAttention(torch.autograd.Function):
             dq, dk, dv = flash_attention_bwd(q, k, v, o, do, m, d,
                                              causal=ctx.causal)
         else:
-            dq, dk, dv = flash_attention_bwd_plain(
-                q, k, v, o, do, m, d, causal=ctx.causal, block_k=ctx.block_k)
+            dq, dk, dv = call_plain(
+                "flash_attention_bwd", lambda *t: flash_attention_bwd_plain(
+                    *t, causal=ctx.causal, block_k=ctx.block_k),
+                q, k, v, o, do, m, d,
+                like=lambda *t: tuple(map(torch.empty_like, t[:3])))
         return dq, dk, dv, None, None, None
 
 

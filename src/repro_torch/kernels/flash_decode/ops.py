@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.dtypes import kv_code, q_code
+from repro_torch.kernels.observe import call_plain
 from repro_torch.kernels.flash_decode.ref import decode_ref
 
 WARP_ROWS = 32 * 4         # cache rows one pass of the earlier kernel reads
@@ -192,4 +193,6 @@ flash_decode.launches_bulk = 0
 def flash_decode_op(q, k, v, lengths, *, intmax: bool = True) -> torch.Tensor:
     if q.is_cuda:
         return flash_decode(q, k, v, lengths, intmax=intmax)
-    return decode_ref(q, k, v, lengths, intmax=intmax)
+    return call_plain("flash_decode", lambda *t: decode_ref(
+        *t, intmax=intmax), q, k, v, lengths,
+        like=lambda q, k, v, n: q.new_empty(q.shape[:-1] + v.shape[-1:]))

@@ -31,6 +31,7 @@ from repro_torch.core.numerics import LN_2
 from repro_torch.kernels import build
 from repro_torch.kernels.dtensor import dims, run_local
 from repro_torch.kernels.dtypes import row_code
+from repro_torch.kernels.observe import call_plain
 from repro_torch.kernels.softermax.ref import softermax_rows_ref
 
 
@@ -112,7 +113,8 @@ def softermax_op(x: torch.Tensor, *, intmax: bool = True) -> torch.Tensor:
 
 def _softermax_local(x: torch.Tensor, intmax: bool) -> torch.Tensor:
     if not x.is_cuda:
-        return softermax_rows_ref(x.float(), intmax).to(x.dtype)
+        return call_plain("softermax_rows", lambda t: softermax_rows_ref(
+            t.float(), intmax).to(t.dtype), x, like=torch.empty_like)
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
     if torch.is_grad_enabled() and x.requires_grad:

@@ -32,6 +32,7 @@ from repro_torch.core.softermax import softermax_fixed
 from repro_torch.kernels import build
 from repro_torch.kernels.dtensor import dims, run_local
 from repro_torch.kernels.dtypes import row_code
+from repro_torch.kernels.observe import call_plain
 from repro_torch.kernels.softermax_quant.plain import softermax_quant_plain
 
 VECTOR_SIZE = 16
@@ -91,7 +92,8 @@ softermax_quant_rows.launches_reg = 0
 def _forward(x: torch.Tensor, vector_size: int) -> torch.Tensor:
     if x.is_cuda:
         return softermax_quant_rows(x, vector_size=vector_size)
-    return softermax_quant_plain(x, vector_size)
+    return call_plain("softermax_quant_rows", softermax_quant_plain, x,
+                      vector_size, like=lambda t, _: torch.empty_like(t))
 
 
 class _SoftermaxQuant(torch.autograd.Function):

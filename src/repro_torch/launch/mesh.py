@@ -2,7 +2,8 @@
 ``repro.launch.mesh``).
 
 Functions, not module constants: importing this module touches no process
-group. Both meshes are ``torch.distributed.device_mesh.DeviceMesh``es with
+group. ``fake_process_group`` stands one process in for the 256 or 512
+ranks of a production mesh (the dry run's). Both meshes are ``torch.distributed.device_mesh.DeviceMesh``es with
 the reference's axis names and shapes; each axis has its own process group
 (``mesh.get_group(axis)``). ``mesh_shape`` gives any mesh's ``{axis:
 size}`` mapping, so the sharding rules engine runs on a ``DeviceMesh`` or
@@ -11,6 +12,7 @@ on a plain mapping (the counterpart of the reference's ``abstract_mesh``).
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 from typing import Dict, Mapping, Optional, Union
 
 import torch
@@ -53,6 +55,24 @@ def make_production_mesh(*, multi_pod: bool = False,
     from torch.distributed.device_mesh import init_device_mesh
     return init_device_mesh(resolve_device(device).type, shape,
                             mesh_dim_names=axes)
+
+
+@contextmanager
+def fake_process_group(world: int):
+    """This process as rank 0 of a ``world``-rank group of the ``fake``
+    backend (``torch.testing``'s ``FakeStore``: no peers, every collective
+    returns at once), for the block: what the dry run lowers the production
+    meshes over in one process, on the ``cpu`` mesh device. A
+    ``RuntimeError`` when a group is already initialized."""
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialized")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def make_host_mesh(model: int = 1,

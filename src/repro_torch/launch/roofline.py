@@ -15,13 +15,16 @@ MODEL_FLOPS uses 6·N·D (train) or 2·N·D (inference), with N = *active*
 params for MoE; MODEL_FLOPS over the analytic FLOPs shows how much of the
 work is attention or recurrence beyond the parameter matmuls.
 
-The bytes and collective terms come from a compiled program's cost
-analysis and its collectives (the reference's ``collective_bytes`` and
-``from_compiled`` read XLA's HLO); the port's come with its dry run.
+The bytes and collective terms come from a step's per-chip program: the
+reference reads XLA's optimized HLO (``collective_bytes``, kept here as it
+is so the port reads the same text the same way) and its cost analysis;
+the port's dry run records its own step (``from_record``). Both turn a
+collective into wire bytes by one ring model, ``_wire_bytes``.
 """
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Dict, Optional
 
 PEAK_FLOPS = 197e12        # bf16 per chip (TPU v5e-class)
@@ -59,6 +62,25 @@ _DTYPE_BYTES = {
     "s64": 8, "u64": 8, "f64": 8, "c64": 8, "c128": 16,
 }
 
+_COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                "collective-permute")
+
+_SHAPE_RE = re.compile(r"\b([a-z0-9]+)\[([0-9,]*)\]")
+# "%name = <output types> <kind>(" — operands are %refs in optimized HLO, so
+# sizes come from the OUTPUT shape(s) + the replica group size.
+_COLL_RE = re.compile(
+    r"=\s*(\([^)]*\)|[a-z0-9]+\[[0-9,]*\]\S*)\s*"
+    r"(all-gather|all-reduce|reduce-scatter|all-to-all|collective-permute)"
+    r"(-start|-done)?\(")
+_GROUP_RE = re.compile(r"replica_groups=\[(\d+),(\d+)\]")
+_HEADER_RE = re.compile(r"^(?:ENTRY\s+)?%?([\w\.\-]+)\s*(?:\(.*)?\{\s*$")
+_WHILE_RE = re.compile(r"\bwhile\(")
+_BODY_REF_RE = re.compile(r"body=%?([\w\.\-]+)")
+_BRANCH_REF_RE = re.compile(r"branch_computations=\{([^}]*)\}")
+_CALLS_REF_RE = re.compile(r"\bcalls=%?([\w\.\-]+)")
+_TRIP_RE = re.compile(r'known_trip_count[^0-9]*(\d+)')
+
+
 
 def shape_bytes(dtype: str, dims: str) -> int:
     """Bytes of an array of HLO type ``dtype`` and comma-separated
@@ -68,6 +90,11 @@ def shape_bytes(dtype: str, dims: str) -> int:
         for d in dims.split(","):
             n *= int(d)
     return n * _DTYPE_BYTES.get(dtype, 4)
+
+
+def _out_bytes(shape_str: str) -> int:
+    return sum(shape_bytes(m.group(1), m.group(2))
+               for m in _SHAPE_RE.finditer(shape_str))
 
 
 def _wire_bytes(kind: str, out_b: int, group: int) -> float:
@@ -82,6 +109,83 @@ def _wire_bytes(kind: str, out_b: int, group: int) -> float:
     if kind == "all-to-all":
         return out_b * (n - 1) / n
     return float(out_b)                  # collective-permute
+
+
+def collective_bytes(hlo_text: str) -> Dict[str, float]:
+    """Per-chip collective wire bytes by kind, from optimized HLO text.
+
+    Computation-graph aware: collectives inside ``while`` bodies (lax.scan
+    over layers / KV chunks) are multiplied by the loop's known_trip_count;
+    conditional branches and async wrapper computations count once.
+    """
+    # 1. split into computations
+    comps: Dict[str, list] = {}
+    cur = None
+    for line in hlo_text.splitlines():
+        h = _HEADER_RE.match(line.strip()) if line and not line.startswith(" ") else None
+        if h and line.rstrip().endswith("{"):
+            cur = h.group(1)
+            comps[cur] = []
+        elif cur is not None:
+            comps[cur].append(line)
+
+    own: Dict[str, Dict[str, float]] = {}
+    children: Dict[str, list] = {}
+    for name, lines in comps.items():
+        acc = {k: 0.0 for k in _COLLECTIVES}
+        kids = []
+        for line in lines:
+            m = _COLL_RE.search(line)
+            if m and m.group(3) != "-done":   # count start, skip done
+                out_b = _out_bytes(m.group(1))
+                g = _GROUP_RE.search(line)
+                group = int(g.group(2)) if g else 2
+                acc[m.group(2)] += _wire_bytes(m.group(2), out_b, group)
+            if _WHILE_RE.search(line):
+                b = _BODY_REF_RE.search(line)
+                t = _TRIP_RE.search(line)
+                trip = int(t.group(1)) if t else 1
+                if b:
+                    kids.append((b.group(1), trip))
+            for br in _BRANCH_REF_RE.finditer(line):
+                for ref in br.group(1).split(","):
+                    kids.append((ref.strip().lstrip("%"), 1))
+            c = _CALLS_REF_RE.search(line)
+            if c:
+                kids.append((c.group(1), 1))
+        own[name] = acc
+        children[name] = kids
+
+    memo: Dict[str, Dict[str, float]] = {}
+
+    def total(name: str, stack=()) -> Dict[str, float]:
+        if name in memo:
+            return memo[name]
+        if name not in own or name in stack:
+            return {k: 0.0 for k in _COLLECTIVES}
+        acc = dict(own[name])
+        for kid, mult in children[name]:
+            sub = total(kid, stack + (name,))
+            for k in _COLLECTIVES:
+                acc[k] += sub[k] * mult
+        memo[name] = acc
+        return acc
+
+    entry = None
+    for line in hlo_text.splitlines():
+        if line.startswith("ENTRY"):
+            h = _HEADER_RE.match(line.strip())
+            if h:
+                entry = h.group(1)
+            break
+    if entry is None or entry not in own:
+        # fall back: sum everything once
+        out = {k: 0.0 for k in _COLLECTIVES}
+        for acc in own.values():
+            for k in _COLLECTIVES:
+                out[k] += acc[k]
+        return out
+    return total(entry)
 
 
 @dataclasses.dataclass
@@ -153,6 +257,27 @@ class Roofline:
             "roofline_fraction": self.roofline_fraction,
             "collective_breakdown": self.collective_breakdown,
         }
+
+
+def from_record(record, chips: int, model_flops: float,
+                analytic_flops: float = 0.0, chip: Chip = H100_SXM
+                ) -> Roofline:
+    """The ``Roofline`` of a dry-run step record (``launch/dryrun.py``'s
+    ``StepRecord``: per-rank ``flops``, ``bytes_accessed`` and the wire
+    bytes of each collective kind), at ``chip``'s rates; the counterpart
+    of the reference's ``from_compiled``."""
+    coll = {k: float(record.collective_bytes.get(k, 0.0))
+            for k in _COLLECTIVES}
+    return Roofline(
+        flops_per_chip=float(record.flops),
+        bytes_per_chip=float(record.bytes_accessed),
+        collective_per_chip=float(sum(coll.values())),
+        chips=chips,
+        model_flops=model_flops,
+        collective_breakdown=coll,
+        analytic_flops=analytic_flops,
+        chip=chip,
+    )
 
 
 # ---------------------------------------------------------------------------

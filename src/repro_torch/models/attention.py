@@ -41,7 +41,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.numerics import LOG2_E, NEG_INF
 from repro_torch.core.softermax import attention_softmax
-from repro_torch.kernels.dtensor import HEADS, run_local
+from repro_torch.kernels.build import is_dtensor
+from repro_torch.kernels.dtensor import (HEADS, merged, rows_matmul,
+                                         run_local, split_evenly)
 from repro_torch.kernels.flash_attention import flash_attention_op
 from repro_torch.kernels.flash_decode import flash_decode_op
 from repro_torch.models.layers import (apply_rope, rmsnorm, rope,
@@ -110,7 +112,8 @@ def q_scale(q: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum('...d,dhk->...hk')``: x (..., d) @ w (d, H, k)."""
     d, H, k = w.shape
-    return (x @ w.reshape(d, H * k)).unflatten(-1, (H, k))
+    y = rows_matmul(x, merged(w, (d, H * k), H))
+    return split_evenly(y, -1, H).unflatten(-1, (H, k))
 
 
 def _project_qkv(params, x, cfg: ModelConfig, positions, x_kv=None,
@@ -140,7 +143,9 @@ def _out_proj(params, o, cfg: ModelConfig):
     o = shard_act(o, ("batch", "act_heads", "seq", "head_dim"))
     wo = params["wo"].to(cfg.compute_dtype_)
     H, dh, d = wo.shape
-    return o.transpose(1, 2).flatten(2) @ wo.reshape(H * dh, d)
+    o = o.transpose(1, 2)
+    return rows_matmul(merged(o, (*o.shape[:2], H * dh), H),
+                       merged(wo, (H * dh, d), H))
 
 
 def _chunk_step(qg, k_c, v_c, m, d, acc, valid, intmax: bool):
@@ -283,10 +288,11 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     if cfg.softmax_impl == "softermax_fixed":
         impl = "naive"      # QAT mode materializes scores (finetuning only)
     if impl == "chunked" and _ring_applicable(cfg, q, k, window, x_kv):
-        from repro_torch.parallel.ring_attention import ring_attention
+        from repro_torch.parallel.ring_attention import (
+            ring_attention, ring_attention_placed)
         from repro_torch.parallel.sharding import current_mesh
-        o = ring_attention(q, k, v, current_mesh(), causal=causal,
-                           intmax=intmax)
+        ring = ring_attention_placed if is_dtensor(q) else ring_attention
+        o = ring(q, k, v, current_mesh(), causal=causal, intmax=intmax)
     elif impl == "chunked":
         o = chunked_attention(q, k, v, causal=causal, intmax=intmax,
                               window=window, chunk=cfg.attention_chunk)
@@ -367,7 +373,39 @@ def attention_decode(params, x1: torch.Tensor, cfg: ModelConfig, *,
     if int8_kv:
         k, k_sc = quantize_kv(k)             # (B, Hkv, Dh), (B, Hkv)
         v, v_sc = quantize_kv(v)
+    q = q_scale(q, cfg)
+    # heads on the cache's kv_heads shards (the one-token rows are small)
+    q, k, v = (shard_act(t, ("batch", "act_heads", "head_dim"))
+               for t in (q, k, v))
+    new = (k, v, k_sc, v_sc) if int8_kv else (k, v)
+    caches = (cache_k, cache_v) + ((cache_k_scale, cache_v_scale)
+                                   if int8_kv else ())
+    row = ("batch", "heads", None)
+    o = run_local(lambda *t: _decode_local(*t, cfg=cfg, window=window,
+                                           ring=ring, intmax=intmax),
+                  (q, cache_len, *new, *caches),
+                  (row, ("batch",)) + (row, row, row[:2], row[:2])[:len(new)]
+                  + (HEADS, HEADS, row, row)[:len(caches)],
+                  keep=row[:2])
 
+    wo = params["wo"].to(dt)
+    y1 = o.flatten(1) @ wo.reshape(-1, wo.shape[-1])
+    if int8_kv:
+        return y1, cache_k, cache_v, cache_k_scale, cache_v_scale
+    return y1, cache_k, cache_v
+
+
+def _decode_local(q, cache_len, *rest, cfg, window, ring, intmax):
+    """``attention_decode``'s cache write and attention on (local)
+    tensors: q (B, Hq, Dh) pre-scaled, the new K/V rows (and their int8
+    scales), the caches (and theirs), written in place."""
+    int8_kv = len(rest) == 8
+    if int8_kv:
+        k, v, k_sc, v_sc, cache_k, cache_v, cache_k_scale, cache_v_scale = \
+            rest
+    else:
+        k, v, cache_k, cache_v = rest
+    dt = cfg.compute_dtype_
     S = cache_k.shape[2]
     if cfg.opt_dus_cache:
         pos = cache_len[:1].long()
@@ -378,7 +416,7 @@ def attention_decode(params, x1: torch.Tensor, cfg: ModelConfig, *,
             cache_k_scale.index_copy_(2, pos, k_sc[:, :, None])
             cache_v_scale.index_copy_(2, pos, v_sc[:, :, None])
     else:
-        rows = torch.arange(x1.shape[0], device=x1.device)
+        rows = torch.arange(q.shape[0], device=q.device)
         slot = cache_len.long() % S if ring else cache_len.long()
         cache_k[rows, :, slot] = k.to(cache_k.dtype)
         cache_v[rows, :, slot] = v.to(cache_v.dtype)
@@ -393,28 +431,29 @@ def attention_decode(params, x1: torch.Tensor, cfg: ModelConfig, *,
     else:
         att_k, att_v = cache_k, cache_v
 
-    q = q_scale(q, cfg)
-    kj = torch.arange(S, device=x1.device)[None, :]   # cache slots
+    kj = torch.arange(S, device=q.device)[None, :]     # cache slots
     if ring:
         # every written slot is live; the buffer size IS the window
         live = kj < torch.clamp(new_len, max=S)[:, None]
-        o = _masked_decode(q, att_k, att_v, live, intmax)
-    elif 0 < window < S:
+        return _masked_decode(q, att_k, att_v, live, intmax)
+    if 0 < window < S:
         # sliding window over a linear cache
         start = torch.clamp(new_len - window, min=0)
         live = (kj >= start[:, None]) & (kj < new_len[:, None])
-        o = _masked_decode(q, att_k, att_v, live, intmax)
-    elif (q.is_cuda or cfg.interpret_kernels) and not int8_kv:
-        o = flash_decode_op(q, att_k, att_v, new_len, intmax=intmax)
-    else:
-        live = kj < new_len[:, None]
-        o = _masked_decode(q, att_k, att_v, live, intmax)
+        return _masked_decode(q, att_k, att_v, live, intmax)
+    if (q.is_cuda or cfg.interpret_kernels) and not int8_kv:
+        return flash_decode_op(q, att_k, att_v, new_len, intmax=intmax)
+    live = kj < new_len[:, None]
+    return _masked_decode(q, att_k, att_v, live, intmax)
 
-    wo = params["wo"].to(dt)
-    y1 = o.flatten(1) @ wo.reshape(-1, wo.shape[-1])
-    if int8_kv:
-        return y1, cache_k, cache_v, cache_k_scale, cache_v_scale
-    return y1, cache_k, cache_v
+
+def masked_decode(q, cache_k, cache_v, live, intmax):
+    """``_masked_decode``; placed operands on local shards (batch and
+    heads)."""
+    row = ("batch", "heads", None)
+    return run_local(lambda *t: _masked_decode(*t, intmax),
+                     (q, cache_k, cache_v, live),
+                     (row, HEADS, HEADS, ("batch", None)), keep=row[:2])
 
 
 def _masked_decode(q, cache_k, cache_v, live, intmax):

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.dtensor import run_local
+from repro_torch.kernels.observe import call_plain
 from repro_torch.models.attention import (attention_apply, attention_decode,
                                          attention_schema)
 from repro_torch.models.layers import rmsnorm, rmsnorm_schema
@@ -94,6 +95,11 @@ def _ssm(decay, dbu, h, C_):
     return (hs @ C_[..., None])[..., 0], h
 
 
+def _ssm_like(decay, dbu, h, C_):
+    """Empty outputs of ``_ssm``'s shapes and dtypes."""
+    return decay.new_empty(decay.shape[:3]), h.new_empty(h.shape)
+
+
 def mamba_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
                 ssm_state=None, conv_state=None, return_state=False):
     """x (B, S, d) → (B, S, d); with ``return_state`` also the final SSM
@@ -123,7 +129,9 @@ def mamba_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
          if ssm_state is None else ssm_state)
     # the recurrence on local shards (batch, channels), the time axis whole
     # (``kernels/dtensor.py``)
-    y, h = run_local(_ssm, (decay, dbu, h, C_), (_SCAN,) * 2 + (
+    y, h = run_local(lambda *t: call_plain("selective_scan", _ssm, *t,
+                                           like=_ssm_like),
+                     (decay, dbu, h, C_), (_SCAN,) * 2 + (
         ("batch", "mlp", None), ("batch", None, None)),
         keep=("batch", "mlp"),
         out_axes=(("batch", None, "mlp"), ("batch", "mlp", None)))

@@ -54,12 +54,15 @@ from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.attention import (attention_apply, attention_decode,
                                          attention_schema, quantize_kv)
 from repro_torch.models.layers import (cross_entropy_loss, embed,
+                                       embed_rows,
                                        embedding_schema, logits, mlp,
                                        mlp_schema, rmsnorm, rmsnorm_schema,
                                        rope_cos_sin)
 from repro_torch.models.schema import (STACKS, layer_params, n_stacked,
                                        stack_schema, tree_map)
-from repro_torch.parallel.sharding import shard_act
+from repro_torch.kernels.build import is_dtensor
+from repro_torch.kernels.dtensor import store
+from repro_torch.parallel.sharding import placed_zeros, shard_act
 
 # Leaves the reference reads in fp32 whatever the compute dtype
 # (``.astype(jnp.float32)`` at use): rwkv's bonus ``u`` and head-norm scale,
@@ -329,9 +332,21 @@ def cache_logical(cfg: ModelConfig):
     return {name: axes[name] for name in cache_spec(cfg, 1, 1)}
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None,
+               placed: bool = False):
+    """The zero cache; ``placed``: each entry a DTensor placed by its
+    logical axes under the ambient mesh and rules."""
+    spec = cache_spec(cfg, batch, max_len)
+    if placed:
+        logical = cache_logical(cfg)
+        return {name: placed_zeros(sh, dt, logical[name], device)
+                for name, (sh, dt) in spec.items()}
     return {name: torch.zeros(sh, dtype=dt, device=device)
-            for name, (sh, dt) in cache_spec(cfg, batch, max_len).items()}
+            for name, (sh, dt) in spec.items()}
+
+
+# the scale of an int8 row of zeros, which unwritten cache rows keep
+_PAD_SCALE = quantize_kv(torch.zeros((1, 1)))[1].item()
 
 
 _HEAD_KEYS = {"head_ckv": "ckv", "head_krope": "krope"}
@@ -372,16 +387,16 @@ def _mixer_decode(bp, x1, cfg: ModelConfig, lc, cache_len, rope_cs):
         y1, shift, wkv = rwkv_mod.rwkv_time_decode(
             bp["mixer"], x1, cfg, shift_state=lc["shift_t"],
             wkv_state=lc["wkv"])
-        lc["shift_t"].copy_(shift)
-        lc["wkv"].copy_(wkv)
+        store(lc["shift_t"], shift)
+        store(lc["wkv"], wkv)
         return y1
     if cfg.family == "hybrid":
         y1, _, _, h, conv = hymba_mod.hymba_mixer_decode(
             bp["mixer"], x1, cfg, cache_k=lc["k"], cache_v=lc["v"],
             cache_len=cache_len, ssm_state=lc["ssm"], conv_state=lc["conv"],
             rope_cs=rope_cs)
-        lc["ssm"].copy_(h)
-        lc["conv"].copy_(conv)
+        store(lc["ssm"], h)
+        store(lc["conv"], conv)
         return y1
     if cfg.mla is not None:
         return mla_mod.mla_decode(
@@ -398,7 +413,7 @@ def _ffn_decode(bp, h2, cfg: ModelConfig, lc, dense_ffn):
     if cfg.family == "rwkv":
         y1, shift = rwkv_mod.rwkv_channel_decode(
             bp["ffn"], h2, cfg, shift_state=lc["shift_c"])
-        lc["shift_c"].copy_(shift)
+        store(lc["shift_c"], shift)
         return y1
     return ffn_apply(bp, h2, cfg, dense_ffn)[0]
 
@@ -421,7 +436,8 @@ def lm_decode_step(params, tokens1: torch.Tensor, cache, cfg: ModelConfig):
     # opt_onehot_embed: the reference multiplies a one-hot matrix by the
     # table, so that a vocab-sharded table is read in place; one-hot @ table
     # returns the table rows exactly, so the gather gives the same numbers
-    x1 = params["embed"]["embedding"].to(cfg.compute_dtype_)[tokens1]
+    x1 = embed_rows(params["embed"]["embedding"].to(cfg.compute_dtype_),
+                    tokens1)
     x1 = shard_act(x1, ("batch", "act_embed"))
     # the GQA RoPE rotation at the step's positions, shared by the layers
     # (MLA ropes its own qk_rope dims; rwkv has none)
@@ -455,6 +471,12 @@ def _ring_place(k_seq: torch.Tensor, W: int) -> torch.Tensor:
                                    device=k_seq.device))
 
 
+def _head(t: torch.Tensor, n: int, dim: int) -> torch.Tensor:
+    """The first ``n`` rows of ``t`` along ``dim`` (``t`` itself when that
+    is all of it: a placed tensor is not sliced)."""
+    return t if n == t.shape[dim] else t.narrow(dim, 0, n)
+
+
 def _layer_prefill(bp, x, cfg: ModelConfig, positions, lc, dense_ffn):
     """One layer over the prompts, writing the layer's cache entries ``lc``
     in place. Returns x."""
@@ -462,8 +484,8 @@ def _layer_prefill(bp, x, cfg: ModelConfig, positions, lc, dense_ffn):
     if cfg.family == "rwkv":
         y, shift, wkv = rwkv_mod.rwkv_time_apply(bp["mixer"], h, cfg,
                                                  return_state=True)
-        lc["shift_t"].copy_(shift)
-        lc["wkv"].copy_(wkv)
+        store(lc["shift_t"], shift)
+        store(lc["wkv"], wkv)
     elif cfg.family == "hybrid":
         mp = bp["mixer"]
         a, k, v = attention_apply(mp["attn"], h, cfg, positions=positions,
@@ -473,34 +495,34 @@ def _layer_prefill(bp, x, cfg: ModelConfig, positions, lc, dense_ffn):
                                                return_state=True)
         y = hymba_mod.combine(mp, a, m, cfg)
         W = lc["k"].shape[2]
-        lc["k"].copy_(_ring_place(k, W))
-        lc["v"].copy_(_ring_place(v, W))
-        lc["ssm"].copy_(ssm_h)
-        lc["conv"].copy_(conv)
+        store(lc["k"], _ring_place(k, W))
+        store(lc["v"], _ring_place(v, W))
+        store(lc["ssm"], ssm_h)
+        store(lc["conv"], conv)
     elif cfg.mla is not None:
         n = min(x.shape[1], lc["ckv"].shape[1])
         y = mla_mod.mla_apply(bp["mixer"], h, cfg, positions=positions,
                               window=cfg.window)
         ckv, krope = mla_mod.mla_prefill_cache(bp["mixer"], h, cfg,
                                                positions)
-        lc["ckv"][:, :n] = ckv[:, :n]
-        lc["krope"][:, :n] = krope[:, :n]
+        store(lc["ckv"], _head(ckv, n, 1), n, dim=1)
+        store(lc["krope"], _head(krope, n, 1), n, dim=1)
     else:
         n = min(x.shape[1], lc["k"].shape[2])
         y, k, v = attention_apply(bp["mixer"], h, cfg, positions=positions,
                                   causal=cfg.causal, window=cfg.window,
                                   return_kv=True)
-        for name, t in (("k", k[:, :, :n]), ("v", v[:, :, :n])):
+        for name, t in (("k", _head(k, n, 2)), ("v", _head(v, n, 2))):
             if cfg.opt_int8_kv:
                 t, sc = quantize_kv(t)
-                lc[name + "_scale"][:, :, :n] = sc
-            lc[name][:, :, :n] = t
+                store(lc[name + "_scale"], sc, n)
+            store(lc[name], t, n)
     x = x + y
     h2 = rmsnorm(bp["ln2"], x, cfg.norm_eps)
     if cfg.family == "rwkv":
         f, shift_c = rwkv_mod.rwkv_channel_apply(bp["ffn"], h2, cfg,
                                                  return_state=True)
-        lc["shift_c"].copy_(shift_c)
+        store(lc["shift_c"], shift_c)
     else:
         f = ffn_apply(bp, h2, cfg, dense_ffn)[0]
     return x + f
@@ -521,11 +543,11 @@ def lm_prefill(params, tokens: torch.Tensor, cfg: ModelConfig,
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
     x = embed(params["embed"], tokens, cfg)
-    cache = init_cache(cfg, B, max_len, device=tokens.device)
+    cache = init_cache(cfg, B, max_len, device=tokens.device,
+                       placed=is_dtensor(tokens))
     if "k_scale" in cache:
-        _, pad_scale = quantize_kv(torch.zeros((1, 1)))
-        cache["k_scale"].fill_(pad_scale.item())
-        cache["v_scale"].fill_(pad_scale.item())
+        cache["k_scale"].fill_(_PAD_SCALE)
+        cache["v_scale"].fill_(_PAD_SCALE)
     for name, blocks, layer_cache in _layer_caches(params, cache):
         for layer in range(n_stacked(blocks)):
             x = _layer_prefill(layer_params(blocks, layer), x, cfg,

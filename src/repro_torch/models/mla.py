@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.numerics import NEG_INF
+from repro_torch.kernels.dtensor import rows_matmul, run_local
 from repro_torch.models.attention import (_mode, chunked_attention,
                                          proj_heads, round_to)
 from repro_torch.models.layers import rmsnorm, rmsnorm_schema, rope
@@ -59,7 +60,7 @@ def _queries(params, x, cfg: ModelConfig, positions):
     a = cfg.mla
     dt = cfg.compute_dtype_
     if a.q_lora > 0:
-        cq = rmsnorm(params["q_norm"], x @ params["wq_a"].to(dt),
+        cq = rmsnorm(params["q_norm"], rows_matmul(x, params["wq_a"].to(dt)),
                      cfg.norm_eps)
         q = proj_heads(cq, params["wq_b"].to(dt)).transpose(1, 2)
     else:
@@ -72,7 +73,7 @@ def _queries(params, x, cfg: ModelConfig, positions):
 def _latent(params, x, cfg: ModelConfig, positions):
     """(B, S, d) → c_kv (B, S, kv_lora) normed, k_rope (B, S, rope) roped."""
     a = cfg.mla
-    ckr = x @ params["wkv_a"].to(cfg.compute_dtype_)
+    ckr = rows_matmul(x, params["wkv_a"].to(cfg.compute_dtype_))
     c_kv = rmsnorm(params["kv_norm"], ckr[..., :a.kv_lora], cfg.norm_eps)
     k_rope = rope(ckr[..., a.kv_lora:], positions, cfg.rope_theta)
     return c_kv, k_rope
@@ -123,7 +124,8 @@ def mla_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
         o = chunked_attention(q, k, v, causal=cfg.causal, intmax=intmax,
                               window=window, chunk=cfg.attention_chunk)
     wo = params["wo"].to(dt)
-    return o.transpose(1, 2).flatten(2) @ wo.reshape(-1, wo.shape[-1])
+    return rows_matmul(o.transpose(1, 2).flatten(2),
+                       wo.reshape(-1, wo.shape[-1]))
 
 
 def mla_prefill_cache(params, x, cfg: ModelConfig, positions):
@@ -148,25 +150,41 @@ def mla_decode(params, x1: torch.Tensor, cfg: ModelConfig, *,
     q_nope, q_rope = q_nope[:, :, 0], q_rope[:, :, 0]          # (B, H, ·)
     c1, kr1 = _latent(params, x1[:, None, :], cfg, pos1)       # (B, 1, ·)
 
+    # absorb q through the K up-projection: scores live in latent space
+    q_abs = _absorb(q_nope[:, :, None], params["wk_b"].to(dt))[:, :, 0]
+    heads, rows = ("batch", "heads", None), ("batch", None, None)
+    o_lat = run_local(
+        lambda *t: _decode_latent(*t, cfg), (q_abs, q_rope, cache_len, c1,
+                                             kr1, cache_ckv, cache_krope),
+        (heads, heads, ("batch",)) + (rows,) * 4, keep=heads[:2])
+    o = torch.einsum("bhr,rhk->bhk", o_lat, params["wv_b"].to(dt))
+    wo = params["wo"].to(dt)
+    y1 = o.flatten(1) @ wo.reshape(-1, wo.shape[-1])
+    return y1, cache_ckv, cache_krope
+
+
+def _decode_latent(q_abs, q_rope, cache_len, c1, kr1, cache_ckv,
+                   cache_krope, cfg: ModelConfig):
+    """``mla_decode``'s latent cache write (in place) and its attention
+    over the latent rows, on (local) tensors: o_lat (B, H, kv_lora)."""
+    a = cfg.mla
+    dt = cfg.compute_dtype_
     S = cache_ckv.shape[1]
     if cfg.opt_dus_cache:
         pos = torch.clamp(cache_len[:1].long(), max=S - 1)
         cache_ckv.index_copy_(1, pos, c1.to(cache_ckv.dtype))
         cache_krope.index_copy_(1, pos, kr1.to(cache_krope.dtype))
     else:
-        rows = torch.arange(x1.shape[0], device=x1.device)
+        rows = torch.arange(q_abs.shape[0], device=q_abs.device)
         slot = cache_len.long()
         cache_ckv[rows, slot] = c1[:, 0].to(cache_ckv.dtype)
         cache_krope[rows, slot] = kr1[:, 0].to(cache_krope.dtype)
     new_len = cache_len + 1
-
-    # absorb q through the K up-projection: scores live in latent space
-    q_abs = _absorb(q_nope[:, :, None], params["wk_b"].to(dt))[:, :, 0]
     s = (q_abs @ cache_ckv.transpose(1, 2) +
          q_rope @ cache_krope.transpose(1, 2)).float()          # (B, H, S)
     premult, intmax = _mode(cfg)
     s = s * ((a.qk_nope + a.qk_rope) ** -0.5 * premult)
-    live = torch.arange(S, device=x1.device)[None, None, :] < \
+    live = torch.arange(S, device=q_abs.device)[None, None, :] < \
         new_len[:, None, None]
     s = torch.where(live, s, torch.full_like(s, NEG_INF))
     m = torch.amax(torch.ceil(s) if intmax else s, dim=-1, keepdim=True)
@@ -175,8 +193,4 @@ def mla_decode(params, x1: torch.Tensor, cfg: ModelConfig, *,
     pos = den > 0
     p = torch.where(pos, p / torch.where(pos, den, torch.ones_like(den)),
                     torch.zeros_like(p))
-    o_lat = p.to(dt) @ cache_ckv                               # (B, H, r)
-    o = torch.einsum("bhr,rhk->bhk", o_lat, params["wv_b"].to(dt))
-    wo = params["wo"].to(dt)
-    y1 = o.flatten(1) @ wo.reshape(-1, wo.shape[-1])
-    return y1, cache_ckv, cache_krope
+    return p.to(dt) @ cache_ckv                                # (B, H, r)

@@ -43,6 +43,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.softermax import attention_softmax
+from repro_torch.kernels.build import is_dtensor
 from repro_torch.kernels.dtensor import run_local
 from repro_torch.launch.mesh import mesh_shape
 from repro_torch.models.layers import _activate, mlp, mlp_schema
@@ -138,10 +139,11 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig
     """x (B, S, d) → (y (B, S, d), aux loss scalar fp32). The expert-
     parallel path under ``opt_moe_shard_map`` when the ambient mesh has a
     ``model`` axis of 2 or more that divides the sequence and the experts;
-    otherwise the global path."""
+    otherwise, and on placed (DTensor) activations, which it does not take,
+    the global path."""
     from repro_torch.parallel.sharding import current_mesh
     mesh = current_mesh()
-    if cfg.opt_moe_shard_map and mesh is not None:
+    if cfg.opt_moe_shard_map and mesh is not None and not is_dtensor(x):
         n = mesh_shape(mesh).get("model", 1)
         if n > 1 and x.shape[1] % n == 0 and cfg.moe.n_experts % n == 0:
             return moe_apply_shard_map(params, x, cfg, mesh)
@@ -169,7 +171,9 @@ def _moe_apply_global(params, x: torch.Tensor, cfg: ModelConfig
     B, S, d = x.shape
     E, k = m.n_experts, m.top_k
     dt = x.dtype
-    xf = x.reshape(-1, d)
+    # placed: the tokens flatten with the sequence whole (DTensor cannot
+    # flatten two sharded dims into a product's rows)
+    xf = shard_act(x, ("batch", None, "act_embed")).reshape(-1, d)
     T = xf.shape[0]
     C = capacity(T, cfg)
     r = route(params["router"], xf, cfg, C)

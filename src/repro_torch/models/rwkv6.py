@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.dtensor import run_local
+from repro_torch.kernels.observe import call_plain
 from repro_torch.models.attention import proj_heads
 from repro_torch.models.schema import ParamSpec
 from repro_torch.parallel.sharding import shard_act
@@ -107,6 +108,11 @@ def _wkv_scan(r, k, v, w, u, state0):
     return torch.stack(ys, 1), S
 
 
+def _wkv_like(r, k, v, w, u, state0):
+    """Empty outputs of ``_wkv_scan``'s shapes and dtypes."""
+    return r.new_empty(r.shape), state0.new_empty(state0.shape)
+
+
 def _shifted(x, shift_state):
     """x_{t-1} - x_t over the sequence, the first step's predecessor
     ``shift_state`` (B, d) (zeros without one)."""
@@ -150,8 +156,10 @@ def rwkv_time_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     # (``kernels/dtensor.py``)
     seq = ("batch", None, "heads", None)
     st = ("batch", "heads", None, None)
-    y, state = run_local(_wkv_scan, args, (seq,) * 4 + (
-        ("heads", None), st), keep=("batch", "heads"), out_axes=(seq, st))
+    y, state = run_local(
+        lambda *t: call_plain("wkv_scan", _wkv_scan, *t, like=_wkv_like),
+        args, (seq,) * 4 + (("heads", None), st), keep=("batch", "heads"),
+        out_axes=(seq, st))
     y = _head_norm(params, y.to(dt), cfg.norm_eps)
     y = shard_act(y, ("batch", "seq", "act_heads", "head_dim"))
     out = (y.reshape(B, S, d) * g) @ params["wo"].to(dt)

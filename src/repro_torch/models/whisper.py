@@ -33,10 +33,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import (_masked_decode, _mode,
+from repro_torch.models.attention import (_mode, masked_decode,
                                           attention_apply, attention_decode,
                                           attention_schema, proj_heads)
-from repro_torch.models.layers import (cross_entropy_loss, layernorm,
+from repro_torch.models.layers import (cross_entropy_loss, embed_rows,
+                                       layernorm,
                                        layernorm_schema, logits, mlp,
                                        mlp_schema, round_to,
                                        sinusoidal_positions)
@@ -126,7 +127,8 @@ def whisper_forward(params, frames: torch.Tensor, tokens: torch.Tensor,
     F = enc.shape[1]
     # rows gathered, then cast: the numbers of the reference's cast-then-
     # gather without a cast of the whole table
-    x = params["embed"]["embedding"][tokens].to(cfg.compute_dtype_)
+    x = embed_rows(params["embed"]["embedding"], tokens).to(
+        cfg.compute_dtype_)
     x = x + params["embed"]["dec_pos"][:S].to(x.dtype)[None]
     positions = _positions(B, S, x.device)
     enc_positions = _positions(B, F, x.device)
@@ -245,6 +247,6 @@ def _cross_decode(ap, x1, xk, xv, cfg: ModelConfig):
     q = q * round_to(premult, q.dtype)
     live = torch.ones((x1.shape[0], xk.shape[2]), dtype=torch.bool,
                       device=x1.device)
-    o = _masked_decode(q, xk, xv, live, intmax)
+    o = masked_decode(q, xk, xv, live, intmax)
     wo = ap["wo"].to(dt)
     return o.flatten(1) @ wo.reshape(-1, wo.shape[-1])

@@ -179,3 +179,23 @@ def ring_attention(
     for dim, (g, i, size) in reversed(places):
         o = gather(o, dim, g, i, size)
     return o
+
+
+def ring_attention_placed(q, k, v, mesh, *, axis_name: str = "model",
+                          causal: bool = True, intmax: bool = True):
+    """Ring attention on DTensors whose sequence is sharded over
+    ``axis_name`` (the sequence-parallel rules): each rank runs the ring
+    on its own shards (the reference's ``shard_map`` body), the batch kept
+    on its shards, the heads whole. Returns a DTensor placed as ``q``."""
+    from repro_torch.kernels.dtensor import run_local
+    group, index, n = axis_group(mesh, axis_name)
+    S = q.shape[2]
+
+    def local(ql, kl, vl):
+        if ql.shape[2] * n != S:
+            raise ValueError(f"sequence {S} is not sharded over the {n} "
+                             f"ranks of '{axis_name}'")
+        return _Ring.apply(ql, kl, vl, group, index, n, causal, intmax)
+
+    ax = ("batch", None, "seq", None)
+    return run_local(local, (q, k, v), (ax,) * 3, keep=("batch", "seq"))

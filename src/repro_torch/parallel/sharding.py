@@ -288,6 +288,22 @@ def distribute(x: torch.Tensor, sharding: NamedSharding) -> DTensor:
     return distribute_tensor(x, sharding.mesh, sharding.placements)
 
 
+def placed_zeros(shape: Sequence[int], dtype: torch.dtype,
+                 logical: Sequence[Optional[str]], device=None) -> DTensor:
+    """Zeros of ``shape`` placed by their logical axes under the ambient
+    mesh and rules, made from each rank's local shard (the whole array
+    never exists)."""
+    sharding = param_sharding(logical, shape)
+    mesh, local = sharding.mesh, list(shape)
+    for i, p in enumerate(sharding.placements):
+        if p.is_shard():
+            local[p.dim] //= mesh.size(i)
+    return DTensor.from_local(
+        torch.zeros(local, dtype=dtype, device=device), mesh,
+        sharding.placements, run_check=False, shape=torch.Size(shape),
+        stride=torch.empty(shape, device="meta").stride())
+
+
 def place(tree, specs):
     """A parameter tree distributed by its same-structured tree of logical
     specs under the ambient mesh and rules (the tree unchanged without a

@@ -82,9 +82,13 @@ def _batch_to(batch, device) -> Dict[str, torch.Tensor]:
 
 def _distributed(mb):
     """A microbatch of placed parameters' step, distributed by
-    ``batch_sharding`` under the ambient mesh."""
+    ``batch_sharding`` under the ambient mesh (a DTensor, placed already,
+    as it is)."""
     out = {}
     for k, v in mb.items():
+        if isinstance(v, DTensor):
+            out[k] = v
+            continue
         sharding = batch_sharding(v.shape)
         if sharding is None:
             raise ValueError("placed parameters need the sharding_context "
@@ -115,8 +119,9 @@ def make_loss_and_grad(loss_fn: Callable, tc: TrainConfig):
         loss_sum, metrics = None, {}
         with placed_scope() if placed else contextlib.nullcontext():
             for i in range(n):
-                mb = {k: v[i * (B // n):(i + 1) * (B // n)]
-                      for k, v in batch.items()}
+                mb = batch if n == 1 else {
+                    k: v[i * (B // n):(i + 1) * (B // n)]
+                    for k, v in batch.items()}
                 if placed:
                     mb = _distributed(mb)
                 loss, metrics = loss_fn(leaves, mb)
